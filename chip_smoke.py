@@ -4,19 +4,33 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit); a CUDA device is required;
-2. build of the CUDA kernel csrc/synth_kp_v5.cu from this checkout;
-3. the kernel against its plain PyTorch version on the card, at B=8
-   epochs x 200 rows x 1300 samples, C=8 and C=16 channels, on seeded
-   synthetic operands (adversarial cases included) and on one block of
-   the fixture scene, held to the engine bar (>= 99.9% of int16 values
-   identical, every difference <= 1000);
-4. the main path through the port's CLI (file sink, fixture nav file,
-   3 s at Boston): the kernel launch count rose, the file holds every
-   epoch, and PCPS acquisition finds every active PRN at its Doppler
-   while absent PRNs stay at the noise floor;
-5. timings with CUDA events (kernel vs plain version, median of 25
-   samples of 10 back-to-back calls, after warm-up) and the end-to-end file-sink rate of a 30 s run (3 runs),
-   each with its stage split.
+2. build of the CUDA kernel csrc/synth_kp_v5.cu (its four
+   instantiations: sine-BOC or CBOC, without or with per-channel gain)
+   from this checkout;
+3. each instantiation against its plain PyTorch version on the card, at
+   B=8 epochs x 200 rows x 1300 samples, C=8 and C=16 channels, on
+   seeded synthetic operands (adversarial cases included) and on one
+   block of the fixture scene (its CBOC version for the CBOC
+   instantiations), held to the engine bar (>= 99.9% of int16 values
+   identical, every difference <= 1000; `cboc_bar`, >= 99.8%, for
+   CBOC); the int16 view against its plain version;
+4. the main paths through the port's CLI (file sink, fixture nav file,
+   at Boston), each with the launch counts set to 0 just before it and
+   read just after: the default run (3 s), `--model cboc` and
+   `--apply-gain` (1 s each), `--model cboc --apply-gain` (3 s) and
+   `--bandlimit --apply-gain` (3 s, 12 launches a block).  Each run's
+   instantiation was launched, the file holds every epoch, and PCPS
+   acquisition finds every active PRN at its Doppler while absent PRNs
+   stay at the noise floor (metric 8; 6, the level of the JAX package's
+   band-limited acquisition test, where the run weights channels by
+   their gain, whose weakest visible one sits at 0.43 of the strongest,
+   or is band-limited);
+5. timings with CUDA events (kernel vs plain version for each
+   instantiation, median of 25 samples of 10 back-to-back calls, after
+   warm-up; the band-limit filter per block), the end-to-end file-sink
+   rate of a 30 s default run and of a 10 s `--bandlimit` run (3 runs
+   each), each with its stage split, and the device time of a 5 s
+   `--bandlimit` run under torch.profiler.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -39,7 +53,17 @@ NAV = ROOT / "tests" / "data" / "obs_fixture_nav.rnx"
 B, N_K = 8, 200
 ABSENT_PRNS = (1, 2, 3)  # below the horizon in the fixture scene
 MIN_METRIC = 8.0
-E2E_RUNS = 3  # 30 s scenario runs through the CLI's build_run
+# runs with --apply-gain (PRN 33 weighs 0.43 of the strongest channel and
+# reads ~7.9) and band-limited runs: tests/test_bandlimit.py's level
+MIN_METRIC_WEAK = 6.0
+E2E_RUNS = 3  # scenario runs through the CLI's build_run
+# instantiation -> the operand variant that selects it
+VARIANTS = {
+    "synth_kp_v5": {},
+    "synth_kp_v5_cboc": dict(cboc=True),
+    "synth_kp_v5_gain": dict(gain=True),
+    "synth_kp_v5_cboc_gain": dict(cboc=True, gain=True),
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -85,75 +109,125 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
+    from galileo_sdr_sim_tpu.models.e1 import E1_OS
     from galileo_sdr_sim_tpu.rx_track import acquire, iq_to_complex
     from galileo_sdr_sim_tpu_torch import cli
     from galileo_sdr_sim_tpu_torch.harness import (
-        CASES, FIXTURE_LLH, FIXTURE_START, engine_bar, fixture_engine, synthetic_kp_inputs,
+        CASES, FIXTURE_LLH, FIXTURE_START, cboc_bar, engine_bar, fixture_engine,
+        synthetic_kp_inputs,
     )
-    from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
-    from galileo_sdr_sim_tpu_torch.ops.synth_kp import prepare_kp_inputs, synth_kp_packed_ref
+    from galileo_sdr_sim_tpu_torch.ops import bandlimit, synth_kp_cuda
+    from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
+        prepare_kp_inputs, synth_kp_int16_ref, synth_kp_packed_ref,
+    )
 
     # --- 2. build --------------------------------------------------------
     _, built = synth_kp_cuda.library()
     print(f"build: {built.path.name} in {built.seconds:.2f} s (fmad={synth_kp_cuda.FMAD})")
     print(built.log.strip())
 
-    # --- 3. kernel vs plain version on the card --------------------------
-    worst = 0
-    for C in (8, 16):
-        for case in CASES:
-            inputs = synthetic_kp_inputs(B, C, 100 + C, case, dev)
-            got = synth_kp_cuda.synth_kp_packed(inputs, N_K)
-            ref = synth_kp_packed_ref(inputs, N_K)
-            torch.cuda.synchronize()
-            check(tuple(got.shape) == (B, N_K, 1300), f"kernel output shape {tuple(got.shape)}")
-            bar = engine_bar(got.cpu().numpy(), ref.cpu().numpy())
-            print(f"compare C={C} {case}: match={bar['match']:.6f} max_abs_err={bar['max_abs_err']}")
-            check(bar["ok"], f"engine bar at C={C} {case}: {bar}")
-            worst = max(worst, bar["max_abs_err"])
-    batch = next(fixture_engine(NAV, 1.0).batches(B))
-    inputs = prepare_kp_inputs(batch, N_K * 1300, pad_epochs=B, device=dev)
-    got = synth_kp_cuda.synth_kp_packed(inputs, N_K).cpu().numpy()
-    ref = synth_kp_packed_ref(inputs, N_K).cpu().numpy()
-    bar = engine_bar(got, ref)
-    active = int((batch.prn > 0).sum())
-    print(f"compare fixture block (C={inputs['cp0'].shape[1]}, {active} active): "
-          f"match={bar['match']:.6f} max_abs_err={bar['max_abs_err']}")
-    check(bar["ok"], f"engine bar on the fixture block: {bar}")
-    check(np.count_nonzero(got) > 0.9 * got.size, "fixture block is mostly silent")
-    worst = max(worst, bar["max_abs_err"])
+    # --- 3. each instantiation vs its plain version on the card ----------
+    worst = dict.fromkeys(VARIANTS, 0)
+    for name, variant in VARIANTS.items():
+        bar_fn = cboc_bar if "cboc" in variant else engine_bar
+        for C in (8, 16):
+            for case in CASES:
+                inputs = synthetic_kp_inputs(B, C, 100 + C, case, dev, **variant)
+                check(synth_kp_cuda.instantiation(inputs) == name, f"{name}: operands select "
+                      f"{synth_kp_cuda.instantiation(inputs)}")
+                got = synth_kp_cuda.synth_kp_packed(inputs, N_K)
+                ref = synth_kp_packed_ref(inputs, N_K)
+                torch.cuda.synchronize()
+                check(tuple(got.shape) == (B, N_K, 1300), f"kernel output shape {tuple(got.shape)}")
+                bar = bar_fn(got, ref)
+                print(f"compare {name} C={C} {case}: match={bar['match']:.6f} "
+                      f"max_abs_err={bar['max_abs_err']}")
+                check(bar["ok"], f"{name} at C={C} {case}: {bar}")
+                worst[name] = max(worst[name], bar["max_abs_err"])
+        model = E1_CBOC if variant.get("cboc") else E1_OS
+        batch = next(fixture_engine(NAV, 1.0, model).batches(B))
+        inputs = prepare_kp_inputs(batch, N_K * 1300, pad_epochs=B, device=dev,
+                                   apply_gain=bool(variant.get("gain")))
+        check(synth_kp_cuda.instantiation(inputs) == name, f"{name}: fixture operands")
+        got = synth_kp_cuda.synth_kp_packed(inputs, N_K)
+        ref = synth_kp_packed_ref(inputs, N_K)
+        bar = bar_fn(got, ref)
+        active = int((batch.prn > 0).sum())
+        print(f"compare {name} fixture block ({model.name}, C={inputs['cp0'].shape[1]}, "
+              f"{active} active): match={bar['match']:.6f} max_abs_err={bar['max_abs_err']}")
+        check(bar["ok"], f"{name} on the fixture block: {bar}")
+        check(np.count_nonzero(got.cpu().numpy()) > 0.9 * got.numel(), "fixture block is mostly silent")
+        worst[name] = max(worst[name], bar["max_abs_err"])
+    inputs16 = synthetic_kp_inputs(B, 8, 108, "random", dev, cboc=True, gain=True)
+    got16 = synth_kp_cuda.synth_kp_int16(inputs16, N_K)
+    check(got16.dtype == torch.int16 and tuple(got16.shape) == (B, 2 * N_K * 1300),
+          f"int16 view {got16.dtype}{tuple(got16.shape)}")
+    bar = cboc_bar(got16, synth_kp_int16_ref(inputs16, N_K))
+    print(f"compare int16 view (cboc_gain, C=8): match={bar['match']:.6f} "
+          f"max_abs_err={bar['max_abs_err']}")
+    check(bar["ok"], f"int16 view: {bar}")
+    worst_int16 = bar["max_abs_err"]
 
     llh = ",".join(str(v) for v in FIXTURE_LLH)
+    launches = dict.fromkeys(VARIANTS, 0)
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as tmp:
-        # --- 4. the main path through the CLI ----------------------------
-        out = Path(tmp) / "smoke.ishort"
-        argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-d", "3", "-t", FIXTURE_START,
-                "-l", llh, "-o", str(out)]
-        synth_kp_cuda.launch_count = 0
-        rc = cli.main(argv)
-        launches = synth_kp_cuda.launch_count
-        print(f"main path: rc={rc} kernel launches={launches}")
-        check(rc == 0, f"cli.main returned {rc}")
-        check(launches > 0, "the main path did not launch the CUDA kernel")
-        epochs = len(fixture_engine(NAV, 3.0))
-        size = out.stat().st_size
-        print(f"main path: {size} bytes for {epochs} epochs")
-        check(size == epochs * 260000 * 4, f"file holds {size} bytes, want {epochs} x 260000 x 4")
-        x = iq_to_complex(np.fromfile(out, dtype=np.int16, count=2 * 15600))
-        check(bool(np.all(np.isfinite(x))), "non-finite samples")
-        first = next(fixture_engine(NAV, 1.0).batches(B))
-        for c in np.flatnonzero(first.prn > 0):
-            prn, f_carr = int(first.prn[c]), float(first.f_carr[0, c])
-            a = acquire(x, prn)
-            print(f"acquire PRN {prn:2d}: metric {a.metric:6.1f} doppler {a.doppler:7.0f} "
-                  f"(engine {f_carr:8.1f})")
-            check(a.metric >= MIN_METRIC, f"PRN {prn} not acquired")
-            check(abs(a.doppler - f_carr) <= 100.0, f"PRN {prn} at the wrong Doppler")
-        for prn in ABSENT_PRNS:
-            check(prn not in first.prn, f"control PRN {prn} is in the scene")
-            a = acquire(x, prn)
-            print(f"acquire absent PRN {prn:2d}: metric {a.metric:6.1f}")
-            check(a.metric < MIN_METRIC, f"false acquisition of absent PRN {prn}")
+        # --- 4. the main paths through the CLI ----------------------------
+        def main_path(options: list, duration: float, name: str, min_metric: float,
+                      blocks_x: int = 1) -> dict:
+            """Drive cli.main once with the counts reset just before and
+            read just after; check the file and acquire it."""
+            out = Path(tmp) / "smoke.ishort"
+            argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-d", str(duration),
+                    "-t", FIXTURE_START, "-l", llh, "-o", str(out), *options]
+            synth_kp_cuda.reset_counts()
+            rc = cli.main(argv)
+            counts = dict(synth_kp_cuda.launch_counts)
+            int16 = synth_kp_cuda.int16_launch_count
+            label = " ".join(options) or "default"
+            print(f"main path {label}: rc={rc} launches={counts} int16 views={int16}")
+            check(rc == 0, f"cli.main {label} returned {rc}")
+            model = E1_CBOC if "--model" in options or "--bandlimit" in options else E1_OS
+            epochs = len(fixture_engine(NAV, duration, model))
+            n_blocks = -(-epochs // B)
+            check(counts[name] == n_blocks * blocks_x,
+                  f"{label}: {counts[name]} launches of {name}, want {n_blocks * blocks_x}")
+            check(sum(counts.values()) == counts[name], f"{label}: other instantiations ran")
+            size = out.stat().st_size
+            print(f"main path {label}: {size} bytes for {epochs} epochs")
+            check(size == epochs * 260000 * 4, f"file holds {size} bytes, want {epochs} x 260000 x 4")
+            x = iq_to_complex(np.fromfile(out, dtype=np.int16, count=2 * 15600))
+            check(bool(np.all(np.isfinite(x))), "non-finite samples")
+            first = next(fixture_engine(NAV, 1.0, model).batches(B))
+            for c in np.flatnonzero(first.prn > 0):
+                prn, f_carr = int(first.prn[c]), float(first.f_carr[0, c])
+                a = acquire(x, prn)
+                print(f"acquire {label} PRN {prn:2d}: metric {a.metric:6.1f} doppler "
+                      f"{a.doppler:7.0f} (engine {f_carr:8.1f})")
+                check(a.metric >= min_metric, f"{label}: PRN {prn} not acquired")
+                check(abs(a.doppler - f_carr) <= 100.0, f"{label}: PRN {prn} at the wrong Doppler")
+            for prn in ABSENT_PRNS:
+                check(prn not in first.prn, f"control PRN {prn} is in the scene")
+                a = acquire(x, prn)
+                print(f"acquire {label} absent PRN {prn:2d}: metric {a.metric:6.1f}")
+                check(a.metric < min_metric, f"{label}: false acquisition of absent PRN {prn}")
+            out.unlink()
+            return {"counts": counts, "int16": int16}
+
+        launches["synth_kp_v5"] = main_path([], 3, "synth_kp_v5", MIN_METRIC)["counts"]["synth_kp_v5"]
+        launches["synth_kp_v5_cboc"] = main_path(
+            ["--model", "cboc"], 1, "synth_kp_v5_cboc", MIN_METRIC)["counts"]["synth_kp_v5_cboc"]
+        launches["synth_kp_v5_gain"] = main_path(
+            ["--apply-gain"], 1, "synth_kp_v5_gain", MIN_METRIC_WEAK)["counts"]["synth_kp_v5_gain"]
+        launches["synth_kp_v5_cboc_gain"] = main_path(
+            ["--model", "cboc", "--apply-gain"], 3, "synth_kp_v5_cboc_gain", MIN_METRIC_WEAK
+        )["counts"]["synth_kp_v5_cboc_gain"]
+        bl = main_path(["--bandlimit", "--apply-gain"], 3, "synth_kp_v5_cboc_gain",
+                       MIN_METRIC_WEAK, blocks_x=bandlimit.OS)
+        launches["synth_kp_v5_cboc_gain"] += bl["counts"]["synth_kp_v5_cboc_gain"]
+        check(bl["int16"] == bl["counts"]["synth_kp_v5_cboc_gain"],
+              "the band-limited run did not go through the int16 view")
+        launches_int16 = bl["int16"]
 
         # --- 5. timings --------------------------------------------------
         times = {}
@@ -161,47 +235,112 @@ def main() -> int:
             inputs = synthetic_kp_inputs(B, C, 100 + C, "random", dev)
             plain = median_ms(lambda: synth_kp_packed_ref(inputs, N_K))
             kern = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
-            times[C] = (kern, plain)
-            print(f"time B={B} n_k={N_K} C={C}: kernel {kern:.4f} ms, plain {plain:.4f} ms "
+            times[("synth_kp_v5", C)] = (kern, plain)
+            print(f"time synth_kp_v5 B={B} n_k={N_K} C={C}: kernel {kern:.4f} ms, "
+                  f"plain {plain:.4f} ms ({gpu})")
+        for name, variant in VARIANTS.items():
+            if not variant:
+                continue
+            inputs = synthetic_kp_inputs(B, 8, 108, "random", dev, **variant)
+            plain = median_ms(lambda: synth_kp_packed_ref(inputs, N_K))
+            kern = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
+            times[(name, 8)] = (kern, plain)
+            print(f"time {name} B={B} n_k={N_K} C=8: kernel {kern:.4f} ms, plain {plain:.4f} ms "
                   f"({gpu})")
-        rates = []
-        for rep in range(E2E_RUNS):
-            e2e_out = Path(tmp) / f"e2e{rep}.ishort"
-            args = cli.build_torch_parser().parse_args(
-                ["-e", str(NAV), "-U", "1", "-b", "1", "-d", "30", "-t", FIXTURE_START,
-                 "-l", llh, "-o", str(e2e_out)]
-            )
-            run = cli.build_run(args)
-            e2e_launches = synth_kp_cuda.launch_count
-            try:
-                t0 = time.perf_counter()
-                stats = run.synth.run()
-                wall = time.perf_counter() - t0
-            finally:
-                run.close()
-            e2e_launches = synth_kp_cuda.launch_count - e2e_launches
-            check(e2e_out.stat().st_size == stats.samples * 4, "e2e file size")
-            e2e_out.unlink()
-            rates.append(stats.samples / wall)
-            # kernel time per launch (timed above, C = 8) x launches / wall
-            busy = e2e_launches * times[8][0] / 1e3 / wall
-            print(f"e2e file sink run {rep}: {stats.epochs} epochs, {stats.samples} samples "
-                  f"in {wall:.3f} s = {rates[-1]:.0f} samples/s, {e2e_launches} kernel "
-                  f"launches, device busy in the kernel ~{busy:.2%} ({gpu})")
-            print(stats.stage_report())
-        print(f"e2e file sink median of {E2E_RUNS}: {np.median(rates):.0f} samples/s ({gpu})")
+        plain16 = median_ms(lambda: synth_kp_int16_ref(inputs16, N_K))
+        kern16 = median_ms(lambda: synth_kp_cuda.synth_kp_int16(inputs16, N_K))
+        print(f"time int16 view (cboc_gain) B={B} n_k={N_K} C=8: kernel {kern16:.4f} ms, "
+              f"plain {plain16:.4f} ms ({gpu})")
+        rng = np.random.default_rng(0)
+        stack = torch.from_numpy(
+            rng.integers(-2500, 2500, (bandlimit.OS, B, 2 * 260000)).astype(np.int16)).to(dev)
+        hist = bandlimit.initial_state(dev)
+        filt = median_ms(lambda: bandlimit.filter_block(stack, hist, B), n=10, per=5)
+        print(f"time band-limit filter per B={B} block: {filt:.4f} ms ({gpu})")
+        del stack
 
-    kern8, plain8 = times[8]
-    print(json.dumps({"kernels": [{
-        "name": "synth_kp_v5",
+        def e2e(options: list, duration: float, label: str) -> None:
+            rates = []
+            for rep in range(E2E_RUNS):
+                e2e_out = Path(tmp) / f"e2e{rep}.ishort"
+                args = cli.build_torch_parser().parse_args(
+                    ["-e", str(NAV), "-U", "1", "-b", "1", "-d", str(duration),
+                     "-t", FIXTURE_START, "-l", llh, "-o", str(e2e_out), *options]
+                )
+                run = cli.build_run(args)
+                before = synth_kp_cuda.launch_count
+                try:
+                    t0 = time.perf_counter()
+                    stats = run.synth.run()
+                    wall = time.perf_counter() - t0
+                finally:
+                    run.close()
+                n_launch = synth_kp_cuda.launch_count - before
+                check(e2e_out.stat().st_size == stats.samples * 4, "e2e file size")
+                e2e_out.unlink()
+                rates.append(stats.samples / wall)
+                print(f"e2e {label} run {rep}: {stats.epochs} epochs, {stats.samples} samples "
+                      f"in {wall:.3f} s = {rates[-1]:.0f} samples/s, {n_launch} kernel "
+                      f"launches ({gpu})")
+                print(stats.stage_report())
+            print(f"e2e {label} median of {E2E_RUNS}: {np.median(rates):.0f} samples/s ({gpu})")
+
+        e2e([], 30, "file sink")
+        e2e(["--bandlimit"], 10, "bandlimit")
+
+        # device time of a --bandlimit run, by kernel, under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        args = cli.build_torch_parser().parse_args(
+            ["-e", str(NAV), "-U", "1", "-b", "1", "-d", "5", "-t", FIXTURE_START,
+             "-l", llh, "-o", str(Path(tmp) / "prof.ishort"), "--bandlimit"]
+        )
+        run = cli.build_run(args)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run.synth.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            run.close()
+        # device-side events only (kernels, copies, memsets): a host op's
+        # row repeats the device time of the kernels it launched
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0 and not e.key.startswith("Activity Buffer")]
+        busy_us = sum(r[1] for r in rows)
+        print(f"profile bandlimit 5 s: device time {busy_us / 1e3:.3f} ms in {wall * 1e3:.1f} ms "
+              f"wall = {busy_us / 1e6 / wall:.2%} busy ({gpu})")
+        for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
+            print(f"  {us / 1e3:9.3f} ms  {count:5d} x  {key[:100]}")
+
+    entries = []
+    for name in VARIANTS:
+        kern, plain = times[(name, 8)]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu",
+            "replaces": synth_kp_cuda.REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": kern,
+            "plain_ms": plain,
+        })
+    entries.append({
+        "name": "synth_kp_v5_int16",
         "route": "cuda",
         "source": "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu",
-        "replaces": "galileo_sdr_sim_tpu/ops/synth_kp_pallas.py:74",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": kern8,
-        "plain_ms": plain8,
-    }]}))
+        "replaces": synth_kp_cuda.INT16_REPLACES,
+        "launches": launches_int16,
+        "max_abs_err": worst_int16,
+        "ms": kern16,
+        "plain_ms": plain16,
+    })
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} was not launched by its main path")
+    print(json.dumps({"kernels": entries}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,9 +6,11 @@
 Reuses the JAX package's JAX-free parser and helpers and follows its
 `cli.main` for the file sink: `--engine auto|kp_pallas|kp` runs the
 factorized engine (the CUDA kernel on a GPU, its plain PyTorch version on
-the CPU) and `--engine direct` the direct engine.  Distributed mode, the
-USRP sink, --trace-dir and the options listed in io/stream.py are not
-ported yet and stop with an error naming their ROADMAP item.
+the CPU) and `--engine direct` the direct engine; `--model cboc`,
+`--apply-gain` and `--bandlimit` (which implies `--model cboc`) run as
+in the JAX package.  Distributed mode, the USRP sink, --trace-dir and
+the options listed in io/stream.py are not ported yet and stop with an
+error naming their ROADMAP item.
 """
 
 from __future__ import annotations

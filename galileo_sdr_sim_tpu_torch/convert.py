@@ -22,13 +22,8 @@ def kp_inputs_from_jax(np_inputs: dict, device: torch.device) -> dict:
     """The JAX package's `prepare_kp_inputs(..., pack_g=True)` dict, each
     value passed through `np.asarray`, -> the port's kernel operands on
     `device` (window anchors and bit-packed symbol words derived here,
-    as the JAX Pallas wrapper derives them)."""
-    for key in ("cboc_ab", "chan_gain"):
-        if key in np_inputs:
-            raise NotImplementedError(
-                f"operand {key!r}: CBOC and per-channel gain are not ported "
-                "yet (ROADMAP queue 1 item 8)"
-            )
+    as the JAX Pallas wrapper derives them; `cboc_ab` and `chan_gain`
+    carried across when present)."""
     if "vpack_rs" not in np_inputs:
         raise ValueError("prepare the JAX inputs with pack_g=True (needs vpack_rs)")
     out = operands_to_device(kernel_operands(np_inputs), device)

@@ -1,14 +1,24 @@
 // Factorized (K, p) Galileo E1 synthesis kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_kernel_v5` of
-// galileo_sdr_sim_tpu/ops/synth_kp_pallas.py, branch sine-BOC,
-// emit="i32pack", no per-channel gain.  Same math and op order: the
+// galileo_sdr_sim_tpu/ops/synth_kp_pallas.py in four instantiations of
+// `synth_kp_v5_kernel<CBOC, GAIN>`: sine-BOC or CBOC(6,1,1/11)
+// (`cboc=True`, :171-175 and :294-304), without or with per-channel
+// gain (`use_gain=True`, :307-311).  Same math and op order: the
 // per-(channel, p) prologue of _kernel_v5 (chip geometry, 5-tap select
 // from the pre-resampled window table, code-period carry planes, carrier
 // p-factor), then for every row K the sum over channels, in ascending
-// order, of (chip_b*d - chip_c*s) * cis(fc_k*K) * cis(p), in float32,
-// times 250, truncated toward zero, and I/Q packed into one int32 word
-// (I low 16 bits, Q high).
+// order, of m * cis(fc_k*K) * cis(p), in float32, times 250, truncated
+// toward zero, and I/Q packed into one int32 word (I low 16 bits, Q
+// high).  m = chip_b*d - chip_c*s, or under CBOC
+// (chip_b*wb)*d - (chip_c*wc)*s with wb, wc = alpha +- beta*tau; times
+// gain[c] under GAIN.
+//
+// One store serves emit="i32pack" and emit="int16" (:337-341): on the
+// GPU the I/Q int16 pair written as one little-endian 32-bit word IS the
+// interleaved int16 layout, so the int16 output is the packed output
+// viewed as int16.  The TPU kernel writes separate I and Q planes only
+// for XLA to stack them afterwards (:537-540).
 //
 // What bounds it on an H100: per B=8 block it writes 8 x 200 x 1300 int32
 // = 8.3 MB and does about 0.5 GFLOP of float32 work at C = 8 channels
@@ -17,6 +27,12 @@
 // at B=8 it launches only 8 x 11 x 5 = 440 blocks of 128 threads.
 //
 // Design:
+// * CBOC: tau = (-1)^(parity(gb) + parity(K) + delta + floor(6*frac));
+//   every term is a small exact integer, so the parity is taken on
+//   integers; parity(gb) is bit 16 of the per-(c, p) bits word, and
+//   (alpha, beta) are kernel arguments.  The weights alpha +- beta are
+//   the float32 values of _kernel_v5's alpha + beta*tau at tau = +-1;
+// * GAIN: the (C,) gains of the epoch sit in shared memory beside mu;
 // * one block per (p tile of 128 columns, epoch b, chunk of K rows),
 //   one thread per column p; each block computes its own per-(c, p)
 //   planes into shared memory (this replaces the TPU's scalar prefetch
@@ -50,16 +66,18 @@ constexpr float NPER = 8184.0f;
 struct Smem {
   float4* plf;      // [C][P_TILE]      psi, w8, cos p, sin p
   char4* chip;      // [C][ROWS][P_TILE] a0b, a1b, a0c, a1c of row rho
-  uint32_t* bits;   // [C][P_TILE]      b0 bits 0..7, b1 bits 8..15
+  uint32_t* bits;   // [C][P_TILE]      b0 bits 0..7, b1 bits 8..15,
+                    //                  parity(gb) bit 16 (CBOC)
   float2* cisk;     // [C][k_chunk]     cos, sin of the K factor
   float* mu;        // [C]
   int* sym;         // [C]
   int* pil;         // [C]
+  float* gain;      // [C]
 };
 
 __host__ __device__ inline size_t smem_bytes(int C, int k_chunk) {
   return (size_t)C * P_TILE * (sizeof(float4) + ROWS * sizeof(char4) + sizeof(uint32_t)) +
-         (size_t)C * k_chunk * sizeof(float2) + (size_t)C * 3 * sizeof(float);
+         (size_t)C * k_chunk * sizeof(float2) + (size_t)C * 4 * sizeof(float);
 }
 
 __device__ inline Smem carve(unsigned char* base, int C, int k_chunk) {
@@ -75,6 +93,7 @@ __device__ inline Smem carve(unsigned char* base, int C, int k_chunk) {
   s.mu = reinterpret_cast<float*>(base);
   s.sym = reinterpret_cast<int*>(s.mu + C);
   s.pil = s.sym + C;
+  s.gain = reinterpret_cast<float*>(s.pil + C);
   return s;
 }
 
@@ -82,14 +101,16 @@ __device__ inline float pm1(int word, int bit) {
   return 1.0f - 2.0f * (float)((word >> bit) & 1);
 }
 
+template <bool CBOC, bool GAIN>
 __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
     const float* __restrict__ cp0, const float* __restrict__ two_a,
     const float* __restrict__ mu, const float* __restrict__ g0,
     const int* __restrict__ o, const float* __restrict__ r,
     const float* __restrict__ carr0, const float* __restrict__ fc,
     const float* __restrict__ fc_k, const int* __restrict__ sym_bits,
-    const int* __restrict__ pil_bits, const int8_t* __restrict__ vpack_rs,
-    int32_t* __restrict__ out, int C, int n_k, int t_rs, int k_chunk) {
+    const int* __restrict__ pil_bits, const float* __restrict__ chan_gain,
+    const int8_t* __restrict__ vpack_rs, int32_t* __restrict__ out, float alpha,
+    float beta, int C, int n_k, int t_rs, int k_chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve(smem_raw, C, k_chunk);
   const int tid = threadIdx.x;
@@ -105,6 +126,7 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
     s.mu[c] = mu[b * C + c];
     s.sym[c] = sym_bits[b * C + c];
     s.pil[c] = pil_bits[b * C + c];
+    if (GAIN) s.gain[c] = chan_gain[b * C + c];
   }
   // K-factor table: cis(2*pi*frac(fc_k * K)) for this block's rows
   for (int i = tid; i < C * k_chunk; i += P_TILE) {
@@ -157,11 +179,19 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
         bw |= (gbm >= thr ? 1u : 0u) << rho;
         bw |= (gbm + 1.0f >= thr ? 1u : 0u) << (8 + rho);
       }
+      if (CBOC) {
+        const float pgb = gb - 2.0f * floorf(gb * 0.5f);  // exact: gb is an integer
+        bw |= (pgb != 0.0f ? 1u : 0u) << 16;
+      }
       s.bits[c * P_TILE + tid] = bw;
     }
   }
   __syncthreads();
   if (p >= P_GRID) return;
+
+  // CBOC weights: alpha + beta*tau at tau = +1 and at tau = -1
+  const float w_plus = alpha + beta;
+  const float w_minus = alpha - beta;
 
   // main loop (_kernel_v5 lines 260-336)
   for (int K = k_begin; K < k_end; ++K) {
@@ -193,7 +223,20 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
       const float s_df = (s1 + w8 * (s2 - s1)) - s_lo;
       const float d_val = d_lo + bsel * d_df;
       const float s_val = s_lo + bsel * s_df;
-      const float m = chip_b * d_val - chip_c * s_val;
+      float m;
+      if (CBOC) {
+        // _kernel_v5 lines 294-304
+        const float frac = t_kp - delta;
+        const float j6 = floorf(6.0f * frac);
+        const int par = (int)((bw >> 16) & 1u) + (rho & 1) + (int)delta + (int)j6;
+        const bool tau_pos = (par & 1) == 0;
+        const float wb = tau_pos ? w_plus : w_minus;
+        const float wc = tau_pos ? w_minus : w_plus;
+        m = (chip_b * wb) * d_val - (chip_c * wc) * s_val;
+      } else {
+        m = chip_b * d_val - chip_c * s_val;
+      }
+      if (GAIN) m = m * s.gain[c];
       const float2 ck = s.cisk[c * k_chunk + (K - k_begin)];
       const float cis_r = ck.x * f.z - ck.y * f.w;
       const float cis_i = ck.x * f.w + ck.y * f.z;
@@ -207,6 +250,28 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
   }
 }
 
+template <bool CBOC, bool GAIN>
+int launch(const void* const* ops, const void* vpack_rs, void* out, float alpha,
+           float beta, int B, int C, int n_k, int t_rs, int k_chunk,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(C, k_chunk);
+  cudaError_t err = cudaFuncSetAttribute(synth_kp_v5_kernel<CBOC, GAIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P_GRID + P_TILE - 1) / P_TILE, B, (n_k + k_chunk - 1) / k_chunk);
+  synth_kp_v5_kernel<CBOC, GAIN><<<grid, P_TILE, smem, stream>>>(
+      static_cast<const float*>(ops[0]), static_cast<const float*>(ops[1]),
+      static_cast<const float*>(ops[2]), static_cast<const float*>(ops[3]),
+      static_cast<const int*>(ops[4]), static_cast<const float*>(ops[5]),
+      static_cast<const float*>(ops[6]), static_cast<const float*>(ops[7]),
+      static_cast<const float*>(ops[8]), static_cast<const int*>(ops[9]),
+      static_cast<const int*>(ops[10]), static_cast<const float*>(ops[11]),
+      static_cast<const int8_t*>(vpack_rs), static_cast<int32_t*>(out), alpha, beta,
+      C, n_k, t_rs, k_chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -214,27 +279,27 @@ extern "C" {
 // Dynamic shared memory a launch with C channels and k_chunk rows needs.
 size_t synth_kp_v5_smem_bytes(int C, int k_chunk) { return smem_bytes(C, k_chunk); }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns cudaGetLastError() (0 = launched).  The
+// CBOC instantiation runs when `cboc` is non-zero (alpha, beta are then
+// its weights), the GAIN one when `chan_gain` is not null.
 int synth_kp_v5_launch(const void* cp0, const void* two_a, const void* mu,
                        const void* g0, const void* o, const void* r,
                        const void* carr0, const void* fc, const void* fc_k,
                        const void* sym_bits, const void* pil_bits,
-                       const void* vpack_rs, void* out, int B, int C, int n_k,
+                       const void* chan_gain, const void* vpack_rs, void* out,
+                       float alpha, float beta, int cboc, int B, int C, int n_k,
                        int t_rs, int k_chunk, void* stream) {
-  const size_t smem = smem_bytes(C, k_chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      synth_kp_v5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P_GRID + P_TILE - 1) / P_TILE, B, (n_k + k_chunk - 1) / k_chunk);
-  synth_kp_v5_kernel<<<grid, P_TILE, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cp0), static_cast<const float*>(two_a),
-      static_cast<const float*>(mu), static_cast<const float*>(g0),
-      static_cast<const int*>(o), static_cast<const float*>(r),
-      static_cast<const float*>(carr0), static_cast<const float*>(fc),
-      static_cast<const float*>(fc_k), static_cast<const int*>(sym_bits),
-      static_cast<const int*>(pil_bits), static_cast<const int8_t*>(vpack_rs),
-      static_cast<int32_t*>(out), C, n_k, t_rs, k_chunk);
-  return (int)cudaGetLastError();
+  const void* ops[12] = {cp0, two_a, mu, g0, o, r, carr0, fc, fc_k,
+                         sym_bits, pil_bits, chan_gain};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool gain = chan_gain != nullptr;
+  if (cboc && gain)
+    return launch<true, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+  if (cboc)
+    return launch<true, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+  if (gain)
+    return launch<false, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+  return launch<false, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
 }
 
 const char* synth_kp_v5_error_string(int err) {

@@ -13,7 +13,8 @@ tests/test_synth_kp_pallas.py edge seeds).
 satellites in view, every epoch inside the factorized engine's envelope.
 
 `engine_bar` is the parity bar the port is held to on the int16 values
-of the packed output.
+of the packed output; `cboc_bar` its CBOC counterpart, and
+`bandlimit_bar` the per-sample bound of the band-limited stream.
 """
 
 from __future__ import annotations
@@ -23,31 +24,54 @@ import torch
 
 from galileo_sdr_sim_tpu.cli import _parse_time
 from galileo_sdr_sim_tpu.constants import LUT_AMPLITUDE
+from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
 from galileo_sdr_sim_tpu.models.e1 import E1_OS
 from galileo_sdr_sim_tpu.rinex import read_rinex_v3
 from galileo_sdr_sim_tpu.scenario import PositionProvider, ScenarioEngine, scenario_start_time
 
-from .ops.synth_kp import COLS, P_GRID, _pack_codes_rs, kernel_operands, operands_to_device
+from .ops.bandlimit import polyphase_kernel
+from .ops.synth_kp import (
+    COLS, GAIN_OPERAND, P_GRID, _pack_codes_rs, cboc_sign_banks, cboc_weights, kernel_operands,
+    operands_to_device,
+)
 
 CASES = ("random", "half_chip", "carrier_wrap", "negated_mu", "edges")
 BAR_MATCH = 0.999  # share of int16 values that must be identical
 BAR_MAX_DIFF = 4 * LUT_AMPLITUDE  # one chip-transition timing ULP (1000)
+# CBOC has 12 transitions a chip against sine-BOC's 2, so 6x the share
+# of samples that sit one float32 ULP from an edge.  The reference's own
+# ceiling between its two CBOC engines is 99.4% (tests/
+# test_synth_kp_pallas.py: mismatch < 6e-3); the port measures >= 99.90%
+# against either JAX engine and >= 99.97% kernel against plain version,
+# so the bar is tightened to 99.8%
+CBOC_BAR_MATCH = 0.998
+BL_SLACK = 2  # band-limit filter: trunc of float32 sums straddling an integer
 
 FIXTURE_START = "2022/02/19,23:30:00"  # GST week 2197, 603000 s
 FIXTURE_LLH = (42.3601, -71.0589, 2.0)  # Boston, the CLI's default site
 
 
-def fixture_engine(nav_path, duration_s: float) -> ScenarioEngine:
-    """The fixture scene of the nav file at `nav_path`, static receiver."""
+def fixture_engine(nav_path, duration_s: float, model=E1_OS) -> ScenarioEngine:
+    """The fixture scene of the nav file at `nav_path`, static receiver,
+    with the signal `model` (E1_OS sine-BOC, or E1_CBOC)."""
     nav = read_rinex_v3(nav_path)
     g0 = scenario_start_time(nav, _parse_time(FIXTURE_START))
-    return ScenarioEngine(nav, PositionProvider(llh_deg=np.array(FIXTURE_LLH)), g0, duration_s)
+    return ScenarioEngine(
+        nav, PositionProvider(llh_deg=np.array(FIXTURE_LLH)), g0, duration_s, model=model
+    )
 
 
-def synthetic_operands(B: int, C: int, seed: int, case: str = "random") -> tuple:
+def synthetic_operands(
+    B: int, C: int, seed: int, case: str = "random", *, cboc: bool = False, gain: bool = False
+) -> tuple:
     """-> (host, codes_b, codes_c): host holds (B, C) float32 cp0, two_a,
     mu, carr0, fc, fc_k and (B, C, 32) float32 +-1 sym_win, pilot_win;
     codes are the (C, 8184) int8 E1B/E1C banks of PRNs 1..C.
+
+    `cboc`: the banks are the signs of E1_CBOC's 12-grid tables and host
+    gains `cboc_ab`, both derived as ops/synth_kp.prepare_kp_inputs
+    derives them.  `gain`: host gains a seeded (B, C) float32
+    `chan_gain` in (0, 1].  Either leaves the other draws unchanged.
 
     Cases: 'random'; 'half_chip' (code phases exactly on half chips);
     'carrier_wrap' (carrier phase just under 1 cycle); 'negated_mu'
@@ -88,26 +112,43 @@ def synthetic_operands(B: int, C: int, seed: int, case: str = "random") -> tuple
         sym_win=rng.choice([-1.0, 1.0], (B, C, 32)).astype(np.float32),
         pilot_win=rng.choice([-1.0, 1.0], (B, C, 32)).astype(np.float32),
     )
-    codes_b = np.ascontiguousarray(E1_OS.data_codes[:C])
-    codes_c = np.ascontiguousarray(E1_OS.pilot_codes[:C])
+    if cboc:
+        tab_b = E1_CBOC.data_codes[:C]
+        tab_c = E1_CBOC.pilot_codes[:C]
+        host["cboc_ab"] = cboc_weights(tab_b)
+        codes_b, codes_c = cboc_sign_banks(tab_b, tab_c, host["cboc_ab"])
+    else:
+        codes_b = np.ascontiguousarray(E1_OS.data_codes[:C])
+        codes_c = np.ascontiguousarray(E1_OS.pilot_codes[:C])
+    if gain:
+        host[GAIN_OPERAND] = (1.0 - rng.uniform(0, 1, (B, C))).astype(np.float32)
     return host, codes_b, codes_c
 
 
-def synthetic_kp_inputs(B: int, C: int, seed: int, case: str, device) -> dict:
+def synthetic_kp_inputs(
+    B: int, C: int, seed: int, case: str, device, *, cboc: bool = False, gain: bool = False
+) -> dict:
     """`synthetic_operands` as the kernel's operands on `device` (what
     `prepare_kp_inputs` returns for a scene)."""
-    host, codes_b, codes_c = synthetic_operands(B, C, seed, case)
+    host, codes_b, codes_c = synthetic_operands(B, C, seed, case, cboc=cboc, gain=gain)
     inputs = operands_to_device(kernel_operands(host), device)
     inputs["vpack_rs"] = torch.from_numpy(_pack_codes_rs(codes_b, codes_c)).to(device)
     return inputs
 
 
-def engine_bar(a_packed: np.ndarray, b_packed: np.ndarray) -> dict:
-    """Compare two packed int32 I/Q outputs on their int16 values ->
-    {'match': share identical, 'max_abs_err': largest |difference|,
-    'ok': whether the bar holds}."""
-    a = np.ascontiguousarray(a_packed).view(np.int16).astype(np.int32)
-    b = np.ascontiguousarray(b_packed).view(np.int16).astype(np.int32)
+def _int16(x) -> np.ndarray:
+    """Packed int32 or int16 I/Q (numpy or tensor) -> int32 numpy of the
+    int16 values, in stream order."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.ascontiguousarray(x).view(np.int16).astype(np.int32)
+
+
+def engine_bar(a_packed, b_packed, match_bar: float = BAR_MATCH) -> dict:
+    """Compare two packed int32 (or int16) I/Q outputs on their int16
+    values -> {'match': share identical, 'max_abs_err': largest
+    |difference|, 'ok': whether the bar holds}."""
+    a, b = _int16(a_packed), _int16(b_packed)
     if a.shape != b.shape:
         raise ValueError(f"shapes differ: {a.shape} vs {b.shape}")
     diff = np.abs(a - b)
@@ -116,5 +157,47 @@ def engine_bar(a_packed: np.ndarray, b_packed: np.ndarray) -> dict:
     return {
         "match": match,
         "max_abs_err": max_err,
-        "ok": match >= BAR_MATCH and max_err <= BAR_MAX_DIFF,
+        "ok": match >= match_bar and max_err <= BAR_MAX_DIFF,
+    }
+
+
+def cboc_bar(a_packed, b_packed) -> dict:
+    """`engine_bar` at the CBOC share: >= 99.8% of int16 values
+    identical, every difference within 1000."""
+    return engine_bar(a_packed, b_packed, CBOC_BAR_MATCH)
+
+
+def bandlimit_bar(y_a, y_b, x_a, x_b) -> dict:
+    """Per-sample bound of two band-limited streams, y (n, 2) or flat
+    interleaved int16, made by the same filter from two phase stacks x
+    (12, n, 2), all in stream order from the same zero history:
+
+        |y_a - y_b| <= (|K| * |x_a - x_b|) + 2
+
+    with K the polyphase kernel (ops/bandlimit.py): each output sample
+    may move by what the input differences can move it through the
+    filter, plus the trunc slack.  -> {'match', 'max_abs_err',
+    'max_excess' (largest |dy| - bound), 'ok'}."""
+    ya, yb = _int16(y_a).reshape(-1, 2), _int16(y_b).reshape(-1, 2)
+    xa = _int16(x_a).reshape(x_a.shape[0], -1, 2)
+    xb = _int16(x_b).reshape(x_b.shape[0], -1, 2)
+    n = ya.shape[0]
+    if yb.shape != ya.shape or xa.shape != xb.shape or xa.shape[1] != n:
+        raise ValueError(f"shapes differ: y {ya.shape} {yb.shape}, x {xa.shape} {xb.shape}")
+    kern = np.abs(polyphase_kernel()[0].astype(np.float64))  # (12, 33)
+    dx = np.abs(xa - xb).astype(np.float64)
+    bound = np.full((n, 2), float(BL_SLACK))
+    # out[i] = sum_j sum_t K[j, t] x_j[i + t - 32]: causal in x
+    for j in range(kern.shape[0]):
+        g = kern[j, ::-1]
+        for q in range(2):
+            if dx[j, :, q].any():
+                bound[:, q] += np.convolve(dx[j, :, q], g)[:n]
+    dy = np.abs(ya - yb)
+    excess = float((dy - bound).max()) if dy.size else 0.0
+    return {
+        "match": float((dy == 0).mean()) if dy.size else 1.0,
+        "max_abs_err": int(dy.max()) if dy.size else 0,
+        "max_excess": excess,
+        "ok": excess <= 1e-9,
     }

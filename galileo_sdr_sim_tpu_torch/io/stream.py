@@ -9,10 +9,19 @@ kernel is enqueued; the drain waits for that copy's event.
 
 Routing per block, as the JAX executor does:
 * the factorized kp engine (ops/synth_kp_cuda.synth_kp_packed: the CUDA
-  kernel on a GPU, its plain PyTorch version on the CPU);
+  kernel on a GPU, its plain PyTorch version on the CPU), for the
+  sine-BOC and the CBOC signal models, with `apply_gain` weighting each
+  channel;
+* under `bandlimit` (CBOC only), 12 phase-shifted kp calls and the
+  polyphase filter (ops/bandlimit.py), its overlap state carried across
+  blocks;
 * the direct engine (ops/synth.py), one epoch at a time, for blocks with
-  an epoch outside the kp engine's code-Doppler envelope (MU_MAX);
-* the direct engine for every block under `mode='lut512'`.
+  an epoch outside the kp engine's code-Doppler envelope (MU_MAX).  As
+  in the JAX executor, such a block ignores `apply_gain` and, under
+  `bandlimit`, is emitted pointwise and leaves the filter state as it
+  was (docs/bandlimit.md, known seams);
+* the direct engine for every block under `mode='lut512'`, and for
+  signal models other than the sine-BOC and CBOC ones.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from galileo_sdr_sim_tpu.io.sinks import Sink
 from galileo_sdr_sim_tpu.profiling import Timer
 from galileo_sdr_sim_tpu.scenario import EpochStateTable, ScenarioEngine
 
+from ..ops.bandlimit import initial_state, synth_block_cboc_bandlimited
 from ..ops.synth import TILE, prepare_device_inputs, synth_block
 from ..ops.synth_kp import P_GRID, ROWS, mu_in_envelope, packed_to_iq16, prepare_kp_inputs
 from ..ops.synth_kp_cuda import synth_kp_packed
@@ -122,12 +132,6 @@ class StreamingSynthesizer:
             raise _not_ported("checkpointing", "ROADMAP queue 1 item 5")
         if not drain_host:
             raise _not_ported("drain_host=False", "ROADMAP queue 1 item 5")
-        if bandlimit:
-            raise _not_ported("--bandlimit", "ROADMAP queue 1 item 9")
-        if getattr(engine.model, "code_subdiv", 2) != 2:
-            raise _not_ported("the CBOC signal model", "ROADMAP queue 1 item 8")
-        if apply_gain:
-            raise _not_ported("--apply-gain", "ROADMAP queue 1 item 8")
         if synth_engine not in ("auto", "kp", "kp_pallas", "direct"):
             raise ValueError(f"unknown synthesis engine {synth_engine!r}")
         if mode not in ("float", "lut512"):
@@ -136,14 +140,31 @@ class StreamingSynthesizer:
         self.sink = sink
         self.device = device
         self.mode = mode
-        # the factorized engine needs whole (8 x 1300)-sample row cycles
-        # and implements the float carrier only
+        # the factorized engine needs whole (8 x 1300)-sample row cycles,
+        # implements the float carrier only, and takes the sine-BOC
+        # half-chip tables and the 12-grid CBOC tables (code_subdiv 2, 12)
+        subdiv = getattr(engine.model, "code_subdiv", 2)
         use_kp = (
             synth_engine != "direct"
             and nsamples % (ROWS * P_GRID) == 0
             and mode != "lut512"
+            and subdiv in (2, 12)
         )
         self.synth_engine = "kp" if use_kp else "direct"
+        self.apply_gain = apply_gain
+        self.bandlimit = bandlimit
+        if bandlimit:
+            if subdiv != 12:
+                raise ValueError(
+                    "--bandlimit needs the CBOC signal model "
+                    "(models/cboc.py); run with --model cboc"
+                )
+            if self.synth_engine != "kp":
+                raise ValueError(
+                    "--bandlimit requires the factorized (K,p) engines "
+                    f"(got {self.synth_engine})"
+                )
+            self._bl_state = initial_state(device)
         self.tile = tile
         self.block_epochs = block_epochs
         self.nsamples = nsamples  # != NUM_IQ_SAMPLES only in tests
@@ -172,20 +193,35 @@ class StreamingSynthesizer:
             # gets its own stage, as in the JAX executor
             section = "fallback_direct" if fallback else "host_prep+dispatch"
             with self.stats.timer.section(section):
-                if use_kp and not fallback:
+                if use_kp and not fallback and self.bandlimit:
+                    out, self._bl_state = synth_block_cboc_bandlimited(
+                        batch,
+                        self.nsamples,
+                        pad_epochs=self.block_epochs,
+                        code_cache=self._code_cache,
+                        state=self._bl_state,
+                        apply_gain=self.apply_gain,
+                        device=self.device,
+                    )
+                    fut = _Fetch(out)
+                elif use_kp and not fallback:
                     inputs = prepare_kp_inputs(
                         batch,
                         self.nsamples,
                         pad_epochs=self.block_epochs,
                         code_cache=self._code_cache,
                         device=self.device,
+                        apply_gain=self.apply_gain,
                     )
                     fut = _Fetch(synth_kp_packed(inputs, n_k=self.nsamples // P_GRID))
                 elif fallback:
                     # an epoch's code Doppler left the kp envelope (a live
                     # position teleport or a reallocation transition):
                     # the direct engine is exact for any rate; one epoch
-                    # at a time bounds its memory
+                    # at a time bounds its memory.  Like the JAX
+                    # executor's, it applies no gain, and under bandlimit
+                    # the block bypasses the filter, whose state it leaves
+                    # untouched
                     outs = []
                     for e in range(n_real):
                         dinp = prepare_device_inputs(

@@ -13,6 +13,16 @@ rounds them) and moves all per-epoch operands to the device in ONE
 host-to-device copy.  `synth_kp_packed_ref` is the plain PyTorch
 version of the kernel (ops/synth_kp_cuda.py): the CPU engine, and the
 reference the kernel is held to on the card.
+
+Two optional operands select the kernel's other branches:
+* `cboc_ab`, a (2,) float32 host tensor (alpha, beta): the
+  CBOC(6,1,1/11) 12-grid value tables (models/cboc.py) factor exactly
+  over +-1 half-chip banks, V(n) = bank(n) * (alpha +- beta * tau(n)),
+  so the banks go into the usual window table and the engine applies
+  the weights per sample;
+* `chan_gain`, (B, C) float32 on the device (`apply_gain`): each
+  channel's path-loss/antenna gain over the block's peak, multiplied
+  into the channel's mix.
 """
 
 from __future__ import annotations
@@ -49,6 +59,9 @@ SCALAR_OPERANDS = (
     "sym_bits", "pil_bits",
 )
 INT_OPERANDS = frozenset(("o", "sym_bits", "pil_bits"))
+GAIN_OPERAND = "chan_gain"  # optional (B, C) float32, joins the same buffer
+CBOC_SUBDIV = 6  # 12-grid table entries per half chip
+CBOC_WIDTH = CBOC_SUBDIV * ROWS * COLS  # 49104: 12-grid CBOC value tables
 
 _F32 = np.float32
 _TWO_PI_F32 = float(_F32(2.0 * np.pi))
@@ -82,6 +95,56 @@ def _pack_codes_rs(codes_b: np.ndarray, codes_c: np.ndarray) -> np.ndarray:
                     src = (COLS * r + s_rs + (j - 2) + shift) % (ROWS * COLS)
                     out[:, j * W_PACK + ci * 16 + shift * 8 + r, :] = flat[:, src]
     return out
+
+
+def cboc_weights(codes_b: np.ndarray) -> np.ndarray:
+    """(C, 49104) CBOC E1B value table -> (2,) float32 (alpha, beta):
+    |table[12h]| = alpha + beta and |table[12h+1]| = alpha - beta, read
+    in the first active row (as the JAX package derives them)."""
+    act = np.nonzero(np.any(codes_b, axis=1))[0]
+    r0 = int(act[0]) if act.size else 0
+    v0 = abs(float(codes_b[r0, 0]))
+    v1 = abs(float(codes_b[r0, 1]))
+    return np.array([(v0 + v1) / 2.0, (v0 - v1) / 2.0], np.float32)
+
+
+def cboc_sign_banks(codes_b: np.ndarray, codes_c: np.ndarray, ab: np.ndarray) -> tuple:
+    """12-grid CBOC value tables -> the (C, 8184) int8 +-1 half-chip
+    banks, after checking that the tables factor as
+
+        data  = bank * (alpha + beta * tau),
+        pilot = bank * (alpha - beta * tau),   tau = (-1)^(h + s)
+
+    (h the half-chip index, s the sub-position).  A 12-subdiv model that
+    does not (TMBOC-style time-multiplexed weights, say) raises
+    ValueError: the factorized engine cannot synthesize it."""
+    sign_b = np.sign(codes_b[:, ::CBOC_SUBDIV]).astype(np.int8)
+    sign_c = np.sign(codes_c[:, ::CBOC_SUBDIV]).astype(np.int8)
+    act = np.nonzero(np.any(codes_b, axis=1))[0]
+    n_g = np.arange(codes_b.shape[1])
+    tau = (1 - 2 * ((n_g // CBOC_SUBDIV + n_g % CBOC_SUBDIV) & 1)).astype(np.float32)
+    a_w, b_w = float(ab[0]), float(ab[1])
+    pred_b = sign_b[act].astype(np.float32).repeat(CBOC_SUBDIV, axis=1) * (a_w + b_w * tau)
+    pred_c = sign_c[act].astype(np.float32).repeat(CBOC_SUBDIV, axis=1) * (a_w - b_w * tau)
+    if not (
+        np.allclose(pred_b, codes_b[act], atol=1e-5)
+        and np.allclose(pred_c, codes_c[act], atol=1e-5)
+    ):
+        raise ValueError(
+            "12-subdiv code table does not factor as "
+            "halfchip*(alpha +/- beta*tau); the (K,p) engines "
+            "cannot synthesize it — use the direct engine "
+            "(synth_engine='direct')"
+        )
+    return sign_b, sign_c
+
+
+def channel_gain(gain: np.ndarray) -> np.ndarray:
+    """(B, C) path-loss/antenna gain -> (B, C) float32 weights, each over
+    the block's peak (<= 1)."""
+    g = gain.astype(np.float64) / 128.0
+    peak = max(g.max(), 1e-9)
+    return (g / peak).astype(np.float32)
 
 
 def compact_channels(batch: EpochBatch, multiple: int = 8) -> EpochBatch:
@@ -154,8 +217,9 @@ def _pack_pm1_bits(win: np.ndarray) -> np.ndarray:
 
 def kernel_operands(host: dict) -> dict:
     """Seeded float32 operands (the JAX `prepare_kp_inputs` host dict:
-    cp0, two_a, mu, carr0, fc, fc_k, sym_win, pilot_win) -> the kernel's
-    per-(epoch, channel) operands, all (B, C) float32 or int32 numpy."""
+    cp0, two_a, mu, carr0, fc, fc_k, sym_win, pilot_win, optionally
+    chan_gain and cboc_ab) -> the kernel's operands: (B, C) float32 or
+    int32 numpy, and cboc_ab as given."""
     cp0 = np.asarray(host["cp0"], np.float32)
     mu = np.asarray(host["mu"], np.float32)
     g0, o, r = _window_anchors(cp0, mu)
@@ -172,30 +236,43 @@ def kernel_operands(host: dict) -> dict:
         "sym_bits": _pack_pm1_bits(host["sym_win"]),
         "pil_bits": _pack_pm1_bits(host["pilot_win"]),
     }
+    if GAIN_OPERAND in host:
+        ops[GAIN_OPERAND] = np.asarray(host[GAIN_OPERAND], np.float32)
+    if "cboc_ab" in host:
+        ops["cboc_ab"] = np.asarray(host["cboc_ab"], np.float32)
     return ops
 
 
 def operands_to_device(ops: dict, device: torch.device) -> dict:
     """Move the (B, C) operands to `device` in one host-to-device copy
-    (pinned and non-blocking on a GPU) and return views into it."""
+    (pinned and non-blocking on a GPU) and return views into it.
+    `cboc_ab` stays on the host as a (2,) float32 tensor: the kernel
+    takes (alpha, beta) as two values."""
     B, C = ops["cp0"].shape
-    shape = (len(SCALAR_OPERANDS), B, C)
+    names = SCALAR_OPERANDS + ((GAIN_OPERAND,) if GAIN_OPERAND in ops else ())
+    shape = (len(names), B, C)
     if device.type == "cuda":
         staging = torch.empty(shape, dtype=torch.int32, pin_memory=True)
     else:
         staging = torch.empty(shape, dtype=torch.int32)
     buf = staging.numpy()
-    for i, name in enumerate(SCALAR_OPERANDS):
+    for i, name in enumerate(names):
         arr = ops[name]
         want = np.int32 if name in INT_OPERANDS else np.float32
         if arr.dtype != want or arr.shape != (B, C):
             raise ValueError(f"operand {name}: {arr.dtype}{arr.shape}, want {want}")
         buf[i] = arr.view(np.int32)
     dev = staging.to(device, non_blocking=True)
-    return {
+    out = {
         name: dev[i] if name in INT_OPERANDS else dev[i].view(torch.float32)
-        for i, name in enumerate(SCALAR_OPERANDS)
+        for i, name in enumerate(names)
     }
+    if "cboc_ab" in ops:
+        ab = np.asarray(ops["cboc_ab"])
+        if ab.dtype != np.float32 or ab.shape != (2,):
+            raise ValueError(f"operand cboc_ab: {ab.dtype}{ab.shape}, want float32(2,)")
+        out["cboc_ab"] = torch.from_numpy(ab.copy())
+    return out
 
 
 def prepare_kp_inputs(
@@ -213,24 +290,22 @@ def prepare_kp_inputs(
     (channels compacted, epochs padded to `pad_epochs`); the window
     table `vpack_rs` (C, 160, 11904) int8 is cached on the device in
     `code_cache` while the channel->PRN map and table width hold.
+    12-grid CBOC tables add `cboc_ab` (their factorization is checked
+    when the table is built); `apply_gain` adds `chan_gain`.
     nsamples must be a multiple of 8*1300 = 10400."""
-    if apply_gain:
-        raise NotImplementedError(
-            "--apply-gain is not ported yet (ROADMAP queue 1 item 8, "
-            "kernel queue item 4)"
-        )
     batch = compact_channels(batch)
     if pad_epochs is not None and batch.f_code.shape[0] != pad_epochs:
         batch = _pad_batch(batch, pad_epochs)
     if nsamples % (ROWS * P_GRID) != 0:
         raise ValueError(f"nsamples={nsamples} is not a multiple of {ROWS * P_GRID}")
     width = batch.codes_b.shape[1]
-    if width != ROWS * COLS:
-        raise NotImplementedError(
-            f"code tables of width {width}: only the sine-BOC(1,1) half-chip "
-            f"tables ({ROWS * COLS}) are ported; CBOC is ROADMAP queue 1 "
-            "item 8 (kernel queue item 5)"
+    if width not in (ROWS * COLS, CBOC_WIDTH):
+        raise ValueError(
+            "the (K,p) engines support sine-BOC(1,1) half-chip tables and "
+            "12-grid CBOC value tables; other geometries use the direct "
+            f"engine (got table width {width})"
         )
+    cboc_ab = cboc_weights(batch.codes_b) if width == CBOC_WIDTH else None
 
     a = batch.f_code * DELT  # chips/sample, float64
     mu = 2.0 * a * P_GRID - COLS  # half-chips of drift per K step
@@ -242,9 +317,10 @@ def prepare_kp_inputs(
     if code_cache is not None and code_cache.get("key") == key:
         vpack_rs = code_cache["vpack_rs"]
     else:
-        vpack_rs = torch.from_numpy(
-            _pack_codes_rs(batch.codes_b, batch.codes_c)
-        ).to(device)
+        codes_b, codes_c = batch.codes_b, batch.codes_c
+        if cboc_ab is not None:
+            codes_b, codes_c = cboc_sign_banks(codes_b, codes_c, cboc_ab)
+        vpack_rs = torch.from_numpy(_pack_codes_rs(codes_b, codes_c)).to(device)
         if code_cache is not None:
             code_cache.update(key=key, vpack_rs=vpack_rs)
 
@@ -258,6 +334,10 @@ def prepare_kp_inputs(
         sym_win=batch.sym_win.astype(np.float32),  # (B, C, 32) +-1
         pilot_win=batch.pilot_win.astype(np.float32),
     )
+    if cboc_ab is not None:
+        host["cboc_ab"] = cboc_ab
+    if apply_gain:
+        host[GAIN_OPERAND] = channel_gain(batch.gain)
     out = operands_to_device(kernel_operands(host), device)
     out["vpack_rs"] = vpack_rs
     return out
@@ -278,12 +358,14 @@ def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel -> (B, n_k, 1300) int32 packed
     I/Q (I in the low 16 bits, Q in the high) on the inputs' device.
 
-    Follows `_kernel_v5` (galileo_sdr_sim_tpu/ops/synth_kp_pallas.py) for
-    sine-BOC, emit="i32pack", no gain: the per-(c, p) prologue, then the
-    (K, p) main loop vectorized over (B, K, p), with channels added in
-    ascending order in float32 (never a reduction over the channel axis:
-    its order is the library's choice and lands an ulp off the kernel's
-    sequential adds, which flips trunc() at integer ties)."""
+    Follows `_kernel_v5` (galileo_sdr_sim_tpu/ops/synth_kp_pallas.py),
+    emit="i32pack", in its sine-BOC or CBOC (`cboc_ab` in the inputs)
+    branch, with or without per-channel gain (`chan_gain`): the
+    per-(c, p) prologue, then the (K, p) main loop vectorized over
+    (B, K, p), with channels added in ascending order in float32 (never
+    a reduction over the channel axis: its order is the library's choice
+    and lands an ulp off the kernel's sequential adds, which flips
+    trunc() at integer ties)."""
     if n_k % ROWS != 0 or n_k // ROWS + 2 > SYM_BITS:
         raise ValueError(f"n_k={n_k}: need a multiple of {ROWS} with n_k/8 + 2 <= 32")
     cp0 = inputs["cp0"]
@@ -291,6 +373,12 @@ def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
     B, C = cp0.shape
     n_kap = n_k // ROWS
     f32 = torch.float32
+    cboc = "cboc_ab" in inputs
+    if cboc:
+        # float32 values carried as Python floats: exact, and a float32
+        # tensor op with a Python scalar computes in float32
+        alpha, beta = (float(v) for v in inputs["cboc_ab"].tolist())
+    gain = inputs.get(GAIN_OPERAND)
     with torch.inference_mode():
         pp = torch.arange(P_GRID, dtype=f32, device=device)
         col = lambda k: inputs[k][..., None]  # noqa: E731  (B, C, 1)
@@ -331,6 +419,9 @@ def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
         b0 = (gbm[:, :, None, :] >= thr).to(f32)
         b1 = (gbm[:, :, None, :] + 1.0 >= thr).to(f32)
         db = b1 - b0
+        if cboc:
+            pgb = gb - 2.0 * torch.floor(gb * 0.5)  # parity of gb (exact)
+            kpar = (rho - 2.0 * torch.floor(rho * 0.5))[:, None]  # parity of K
 
         # --- main loop: K = 8*kap + rho, channels ascending ------------
         k8 = torch.arange(n_k, dtype=f32, device=device).reshape(n_kap, ROWS)
@@ -358,7 +449,21 @@ def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
             s_df = (s1 + w8c * (s2 - s1)) - s_lo
             d_val = d_lo + bsel * d_df
             s_val = s_lo + bsel * s_df
-            m = chip_b * d_val - chip_c * s_val
+            if cboc:
+                # tau = (-1)^(parity(gb) + parity(K) + delta + j6), j6 the
+                # sc6 sub-position in the half chip; the op order of
+                # _kernel_v5's cboc branch, every term an exact integer
+                frac = t_kp - delta
+                j6 = torch.floor(6.0 * frac)
+                par = pgb[:, c, None, None, :] + kpar + delta + j6
+                tau = 1.0 - 2.0 * (par - 2.0 * torch.floor(par * 0.5))
+                wb = alpha + beta * tau
+                wc = alpha - beta * tau
+                m = (chip_b * wb) * d_val - (chip_c * wc) * s_val
+            else:
+                m = chip_b * d_val - chip_c * s_val
+            if gain is not None:
+                m = m * gain[:, c, None, None, None]
             ph_k = inputs["fc_k"][:, c, None, None] * k8  # (B, kap, rho)
             ph_k = ph_k - torch.floor(ph_k)
             ang_k = _TWO_PI_F32 * ph_k
@@ -378,3 +483,17 @@ def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
         qq = torch.trunc(amp * acc_q).to(torch.int32)
         packed = (ii & 0xFFFF) | (qq << 16)
         return packed.reshape(B, n_k, P_GRID)
+
+
+def iq16_view(packed: torch.Tensor) -> torch.Tensor:
+    """(B, n_k, 1300) int32 packed I/Q -> (B, 2*n_k*1300) interleaved
+    int16, a view on the same device (little-endian words: I first)."""
+    if sys.byteorder != "little":
+        raise RuntimeError("the packed I/Q view needs a little-endian host")
+    return packed.view(torch.int16).reshape(packed.shape[0], -1)
+
+
+def synth_kp_int16_ref(inputs: dict, n_k: int) -> torch.Tensor:
+    """Plain version of the kernel's emit="int16" output, (B, 2*n_k*1300)
+    interleaved int16: the packed output viewed as int16."""
+    return iq16_view(synth_kp_packed_ref(inputs, n_k))

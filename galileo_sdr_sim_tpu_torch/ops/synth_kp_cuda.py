@@ -1,11 +1,14 @@
 """Wrapper of the hand-written CUDA kernel csrc/synth_kp_v5.cu.
 
 It replaces the Pallas TPU kernel `_kernel_v5`
-(galileo_sdr_sim_tpu/ops/synth_kp_pallas.py, sine-BOC, emit="i32pack",
-no gain): per block of B epochs it writes (B, n_k, 1300) int32 packed
-I/Q.  On an H100 one B=8 block is ~8.3 MB of int32 output against ~0.5
-GFLOP of float32 work at C = 8 channels, so the kernel is bound by FP32
-arithmetic, not by memory; see the source for its design.
+(galileo_sdr_sim_tpu/ops/synth_kp_pallas.py) in four instantiations,
+chosen by the operands: sine-BOC or CBOC (`cboc_ab` in the inputs),
+without or with per-channel gain (`chan_gain`).  Per block of B epochs it
+writes (B, n_k, 1300) int32 packed I/Q; `synth_kp_int16` is the same
+store viewed as (B, 2*n_k*1300) interleaved int16 (the TPU kernel's
+emit="int16").  On an H100 one B=8 block is ~8.3 MB of int32 output
+against ~0.5 GFLOP of float32 work at C = 8 channels, so the kernel is
+bound by FP32 arithmetic, not by memory; see the source for its design.
 
 `synth_kp_packed` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (ops/synth_kp.synth_kp_packed_ref) for CPU tensors only.
@@ -20,11 +23,21 @@ import torch
 
 from . import _build
 from .synth_kp import (
-    INT_OPERANDS, P_GRID, ROWS, SCALAR_OPERANDS, SYM_BITS, T_RS, W_RS, synth_kp_packed_ref,
+    GAIN_OPERAND, INT_OPERANDS, P_GRID, ROWS, SCALAR_OPERANDS, SYM_BITS, T_RS, W_RS,
+    iq16_view, synth_kp_packed_ref,
 )
 
 SOURCE = "synth_kp_v5"
-REPLACES = "galileo_sdr_sim_tpu/ops/synth_kp_pallas.py:74 (_kernel_v5)"
+_PALLAS = "galileo_sdr_sim_tpu/ops/synth_kp_pallas.py"
+# instantiation -> file:line of the branch of `_kernel_v5` it replaces:
+# the kernel (sine-BOC), use_gain=True, cboc=True (with and without gain)
+REPLACES = {
+    "synth_kp_v5": f"{_PALLAS}:74",
+    "synth_kp_v5_gain": f"{_PALLAS}:307",
+    "synth_kp_v5_cboc": f"{_PALLAS}:294",
+    "synth_kp_v5_cboc_gain": f"{_PALLAS}:294",
+}
+INT16_REPLACES = f"{_PALLAS}:337"  # emit="int16"
 # FMA contraction of a*b + c (nvcc -fmad): kept on, the build that lies
 # closer to the JAX engine on the fixture scene, whose XLA lowering fuses
 # the p-phase multiply-adds too (PERF.md, FMA-contraction finding)
@@ -32,10 +45,29 @@ FMAD = True
 K_CHUNK = 40  # K rows per block: 5 blocks along K at n_k = 200
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
-# launches of the kernel in this process (read and reset by chip_smoke.py)
+# launches of the kernel in this process (read and reset by chip_smoke.py):
+# the total, per instantiation, and those made for the int16 view
 launch_count = 0
+launch_counts = dict.fromkeys(REPLACES, 0)
+int16_launch_count = 0
 
 _libs: dict[bool, tuple[ctypes.CDLL, _build.Built]] = {}
+
+
+def reset_counts() -> None:
+    global launch_count, int16_launch_count
+    launch_count = int16_launch_count = 0
+    launch_counts.update(dict.fromkeys(REPLACES, 0))
+
+
+def instantiation(inputs: dict) -> str:
+    """The kernel instantiation the operands select."""
+    name = "synth_kp_v5"
+    if "cboc_ab" in inputs:
+        name += "_cboc"
+    if GAIN_OPERAND in inputs:
+        name += "_gain"
+    return name
 
 
 def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
@@ -43,9 +75,10 @@ def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
     if fmad not in _libs:
         built = _build.build(SOURCE, (f"-fmad={'true' if fmad else 'false'}",))
         lib = _build.load(built)
-        lib.synth_kp_v5_launch.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p
-        ]
+        lib.synth_kp_v5_launch.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p]
+        )
         lib.synth_kp_v5_launch.restype = ctypes.c_int
         lib.synth_kp_v5_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.synth_kp_v5_smem_bytes.restype = ctypes.c_size_t
@@ -60,13 +93,21 @@ def _check(inputs: dict, n_k: int) -> tuple[int, int]:
     if cp0.dim() != 2:
         raise ValueError(f"cp0 must be (B, C), got {tuple(cp0.shape)}")
     B, C = cp0.shape
-    for name in SCALAR_OPERANDS:
+    names = SCALAR_OPERANDS + ((GAIN_OPERAND,) if GAIN_OPERAND in inputs else ())
+    for name in names:
         t = inputs[name]
         want = torch.int32 if name in INT_OPERANDS else torch.float32
         if t.dtype != want or tuple(t.shape) != (B, C):
             raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, want {want}({B}, {C})")
         if t.device != cp0.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {cp0.device}")
+    if "cboc_ab" in inputs:
+        ab = inputs["cboc_ab"]
+        if ab.dtype != torch.float32 or tuple(ab.shape) != (2,) or ab.device.type != "cpu":
+            raise ValueError(
+                f"cboc_ab: {ab.dtype}{tuple(ab.shape)} on {ab.device}, "
+                "want a float32 (2,) host tensor (alpha, beta)"
+            )
     tab = inputs["vpack_rs"]
     if tab.dtype != torch.int8 or tuple(tab.shape) != (C, W_RS, T_RS):
         raise ValueError(f"vpack_rs: {tab.dtype}{tuple(tab.shape)}, want int8({C}, {W_RS}, {T_RS})")
@@ -78,8 +119,9 @@ def _check(inputs: dict, n_k: int) -> tuple[int, int]:
 
 
 def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
-    """Launch the kernel of `lib` on the current stream of the inputs'
-    device; the output is allocated here, nothing is synchronized."""
+    """Launch the instantiation the operands select, from `lib`, on the
+    current stream of the inputs' device; the output is allocated here,
+    nothing is synchronized."""
     global launch_count
     B, C = _check(inputs, n_k)
     device = inputs["cp0"].device
@@ -87,18 +129,23 @@ def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
     smem = lib.synth_kp_v5_smem_bytes(C, k_chunk)
     if smem > SMEM_LIMIT:
         raise ValueError(f"C={C} channels need {smem} B of shared memory (> {SMEM_LIMIT})")
+    cboc = "cboc_ab" in inputs
+    alpha, beta = inputs["cboc_ab"].tolist() if cboc else (0.0, 0.0)
+    gain = inputs.get(GAIN_OPERAND)
     out = torch.empty((B, n_k, P_GRID), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         ptrs = [inputs[name].data_ptr() for name in SCALAR_OPERANDS]
         err = lib.synth_kp_v5_launch(
-            *ptrs, inputs["vpack_rs"].data_ptr(), out.data_ptr(),
-            B, C, n_k, T_RS, k_chunk, stream,
+            *ptrs, None if gain is None else gain.data_ptr(),
+            inputs["vpack_rs"].data_ptr(), out.data_ptr(),
+            alpha, beta, int(cboc), B, C, n_k, T_RS, k_chunk, stream,
         )
     if err != 0:
         msg = lib.synth_kp_v5_error_string(err).decode()
         raise RuntimeError(f"synth_kp_v5 launch failed: CUDA error {err} ({msg})")
     launch_count += 1
+    launch_counts[instantiation(inputs)] += 1
     return out
 
 
@@ -113,3 +160,13 @@ def synth_kp_packed(inputs: dict, n_k: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {device}")
     lib, _ = library()
     return _launch(lib, inputs, n_k)
+
+
+def synth_kp_int16(inputs: dict, n_k: int) -> torch.Tensor:
+    """(B, 2*n_k*1300) interleaved int16 I/Q (emit="int16"): the packed
+    output viewed as int16, on the inputs' device."""
+    global int16_launch_count
+    out = iq16_view(synth_kp_packed(inputs, n_k))
+    if out.device.type == "cuda":
+        int16_launch_count += 1
+    return out

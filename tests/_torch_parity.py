@@ -12,6 +12,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import torch
 
+from galileo_sdr_sim_tpu.models.e1 import E1_OS
 from galileo_sdr_sim_tpu.ops import synth_kp as jkp
 from galileo_sdr_sim_tpu.scenario import ScenarioEngine
 from galileo_sdr_sim_tpu_torch import harness
@@ -21,19 +22,25 @@ START = harness.FIXTURE_START
 LLH = harness.FIXTURE_LLH
 CPU = torch.device("cpu")
 
-
-def fixture_engine(duration_s: float) -> ScenarioEngine:
-    return harness.fixture_engine(NAV, duration_s)
-
-
-def fixture_batch(block_epochs: int = 8):
-    return next(fixture_engine(1.0).batches(block_epochs))
+# the test run is several pytest-xdist worker processes at once; torch's
+# default of one OpenMP thread per core in each of them oversubscribes
+# the cores, and the spinning threads slow the run several times over
+torch.set_num_threads(min(2, torch.get_num_threads()))
 
 
-def synthetic_pair(B: int, C: int, seed: int, case: str) -> tuple:
-    """-> (jax_inputs, torch_inputs) holding the same seeded operands."""
-    host, codes_b, codes_c = harness.synthetic_operands(B, C, seed, case)
+def fixture_engine(duration_s: float, model=E1_OS) -> ScenarioEngine:
+    return harness.fixture_engine(NAV, duration_s, model=model)
+
+
+def fixture_batch(block_epochs: int = 8, model=E1_OS):
+    return next(fixture_engine(1.0, model=model).batches(block_epochs))
+
+
+def synthetic_pair(B: int, C: int, seed: int, case: str, **variant) -> tuple:
+    """-> (jax_inputs, torch_inputs) holding the same seeded operands;
+    `variant` is harness.synthetic_operands' cboc= and gain=."""
+    host, codes_b, codes_c = harness.synthetic_operands(B, C, seed, case, **variant)
     jax_inputs = {k: jnp.asarray(v) for k, v in host.items()}
     jax_inputs["vpack"] = jnp.asarray(jkp._pack_codes(codes_b, codes_c))
     jax_inputs["vpack_rs"] = jnp.asarray(jkp._pack_codes_rs(codes_b, codes_c))
-    return jax_inputs, harness.synthetic_kp_inputs(B, C, seed, case, CPU)
+    return jax_inputs, harness.synthetic_kp_inputs(B, C, seed, case, CPU, **variant)

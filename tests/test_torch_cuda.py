@@ -7,9 +7,13 @@ without the JAX test configuration:
 
 The kernel is held to its plain PyTorch version on the same operands, on
 the card, to the engine bar (>= 99.9% of int16 values identical, every
-difference within 4 * LUT_AMPLITUDE = 1000); the direct engine on the
-card must equal its CPU run exactly under lut512.  Without a GPU every
-test skips: a CUDA kernel has no CPU mode.
+difference within 4 * LUT_AMPLITUDE = 1000), its CBOC instantiations to
+`cboc_bar` (>= 99.8%, within 1000); the direct engine on the card must
+equal its CPU run exactly under lut512.  The band-limit filter on the
+card is held to its CPU run (>= 99.9% identical, every difference
+within 1), and the band-limited stream to its CPU run by the per-sample
+bound of `bandlimit_bar`.  Without a GPU every test skips: a CUDA
+kernel has no CPU mode.
 """
 
 from pathlib import Path
@@ -19,8 +23,13 @@ import pytest
 import torch
 
 from galileo_sdr_sim_tpu.io.sinks import Sink
-from galileo_sdr_sim_tpu_torch.harness import CASES, engine_bar, fixture_engine, synthetic_kp_inputs
+from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
+from galileo_sdr_sim_tpu.models.e1 import E1_OS
+from galileo_sdr_sim_tpu_torch.harness import (
+    CASES, bandlimit_bar, cboc_bar, engine_bar, fixture_engine, synthetic_kp_inputs,
+)
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
+from galileo_sdr_sim_tpu_torch.ops import bandlimit as tbl
 from galileo_sdr_sim_tpu_torch.ops import synth as tsynth
 from galileo_sdr_sim_tpu_torch.ops import synth_kp as tkp
 from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
@@ -28,6 +37,8 @@ from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
 NAV = Path(__file__).resolve().parent / "data" / "obs_fixture_nav.rnx"
 CPU = torch.device("cpu")
 N_K = 200  # full 0.1 s epochs
+
+VARIANTS = {"cboc": dict(cboc=True), "gain": dict(gain=True), "cboc_gain": dict(cboc=True, gain=True)}
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +122,88 @@ def test_direct_engine_on_the_card(gpu, mode):
     else:
         bar = engine_bar(got, ref)
         assert bar["ok"], bar
+
+
+# --- the CBOC and gain instantiations, the int16 view, the band limit ------
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_instantiation_matches_plain_version(gpu, variant, C, case):
+    inputs = synthetic_kp_inputs(8, C, 9, case, gpu, **VARIANTS[variant])
+    name = f"synth_kp_v5_{variant}"
+    before = synth_kp_cuda.launch_counts[name]
+    got = synth_kp_cuda.synth_kp_packed(inputs, N_K)
+    assert synth_kp_cuda.launch_counts[name] == before + 1
+    ref = tkp.synth_kp_packed_ref(inputs, N_K)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (8, N_K, 1300)
+    bar = (cboc_bar if "cboc" in variant else engine_bar)(got, ref)
+    assert bar["ok"], bar
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_instantiation_matches_plain_version_on_fixture_block(gpu, variant):
+    cboc = "cboc" in variant
+    batch = next(fixture_engine(NAV, 1.0, E1_CBOC if cboc else E1_OS).batches(8))
+    inputs = tkp.prepare_kp_inputs(
+        batch, N_K * 1300, pad_epochs=8, device=gpu, apply_gain="gain" in variant
+    )
+    assert synth_kp_cuda.instantiation(inputs) == f"synth_kp_v5_{variant}"
+    got = synth_kp_cuda.synth_kp_packed(inputs, N_K).cpu().numpy()
+    ref = tkp.synth_kp_packed_ref(inputs, N_K).cpu().numpy()
+    bar = (cboc_bar if cboc else engine_bar)(got, ref)
+    assert bar["ok"], bar
+    assert np.count_nonzero(got) > 0.9 * got.size
+
+
+def test_int16_view(gpu):
+    inputs = synthetic_kp_inputs(8, 8, 11, "random", gpu, cboc=True, gain=True)
+    before = synth_kp_cuda.int16_launch_count
+    got = synth_kp_cuda.synth_kp_int16(inputs, N_K)
+    assert synth_kp_cuda.int16_launch_count == before + 1
+    assert got.device == gpu and got.dtype == torch.int16 and tuple(got.shape) == (8, 2 * N_K * 1300)
+    packed = synth_kp_cuda.synth_kp_packed(inputs, N_K)
+    np.testing.assert_array_equal(got.cpu().numpy(), tkp.packed_to_iq16(packed.cpu().numpy()))
+    bar = cboc_bar(got, tkp.synth_kp_int16_ref(inputs, N_K))
+    assert bar["ok"], bar
+
+
+def test_bandlimit_filter_on_the_card(gpu):
+    """The same full-size phase stack and history through the filter on
+    the card and on the CPU: full float32 on both."""
+    rng = np.random.default_rng(5)
+    stacked = torch.from_numpy(rng.integers(-2500, 2500, (12, 8, 2 * 260000)).astype(np.int16))
+    hist = torch.from_numpy(rng.uniform(-2000, 2000, (2, 12, 32)).astype(np.float32))
+    got, got_hist = tbl.filter_block(stacked.to(gpu), hist.to(gpu), 7)
+    ref, ref_hist = tbl.filter_block(stacked, hist, 7)
+    diff = np.abs(got.cpu().numpy().astype(np.int32) - ref.numpy().astype(np.int32))
+    assert (diff == 0).mean() >= 0.999 and diff.max() <= 1, ((diff == 0).mean(), diff.max())
+    assert torch.equal(got_hist.cpu(), ref_hist)
+
+
+def test_bandlimit_stream_on_the_card(gpu):
+    """7 epochs of the CBOC fixture scene in blocks of 4 (a full and a
+    partial block), with gain, on the card and on the CPU."""
+    kw = dict(bandlimit=True, apply_gain=True, block_epochs=4)
+    before = synth_kp_cuda.launch_counts["synth_kp_v5_cboc_gain"]
+    sink = _Collect()
+    stats = StreamingSynthesizer(fixture_engine(NAV, 0.8, E1_CBOC), sink, device=gpu, **kw).run()
+    assert synth_kp_cuda.launch_counts["synth_kp_v5_cboc_gain"] - before == 2 * 12
+    assert stats.epochs == 7
+    cpu_sink = _Collect()
+    StreamingSynthesizer(fixture_engine(NAV, 0.8, E1_CBOC), cpu_sink, device=CPU, **kw).run()
+    got, ref = sink.stream(), cpu_sink.stream()
+    assert got.size == 7 * 2 * 260000
+    xs_g, xs_c, caches = [], [], ({}, {})
+    for batch in fixture_engine(NAV, 0.8, E1_CBOC).batches(4):
+        n = batch.f_code.shape[0]
+        for xs, dev, cache in ((xs_g, gpu, caches[0]), (xs_c, CPU, caches[1])):
+            x = tbl.synth_phases(batch, 260000, 4, cache, True, device=dev)
+            xs.append(x.cpu().numpy()[:, :n].reshape(12, -1))
+    x_g, x_c = np.concatenate(xs_g, axis=1), np.concatenate(xs_c, axis=1)
+    bar = cboc_bar(x_g, x_c)
+    assert bar["ok"], bar
+    bar = bandlimit_bar(got, ref, x_g, x_c)
+    assert bar["ok"], bar

@@ -105,6 +105,20 @@ def test_gpu_side_file_imports_no_jax(path):
     assert int(proc.stdout.strip()) >= 5
 
 
+def test_bandlimit_port_stands_alone():
+    """The port's band-limit module copies the JAX module's numpy parts
+    instead of importing them: that module imports JAX."""
+    code = (
+        "import sys; import galileo_sdr_sim_tpu_torch.ops.bandlimit; "
+        "assert 'galileo_sdr_sim_tpu.ops.bandlimit' not in sys.modules; "
+        "assert 'jax' not in sys.modules; print('ok')"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 def test_device_resolution():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="unsupported device"):

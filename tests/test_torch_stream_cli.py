@@ -1,8 +1,12 @@
 """The whole slice on the CPU: the port's CLI and streaming executor
 against the JAX package's StreamingSynthesizer over the same fixture
-scene.  Float-carrier streams are held to the engine bar (>= 99.9% of
-int16 values identical, every difference within 4 * LUT_AMPLITUDE =
-1000); lut512 streams must be byte-identical."""
+scene.  Float-carrier sine-BOC streams are held to the engine bar (>=
+99.9% of int16 values identical, every difference within 4 *
+LUT_AMPLITUDE = 1000), CBOC streams to `cboc_bar` (>= 99.8%, within
+1000); lut512 streams must be byte-identical.  Band-limited streams are
+held to the per-sample bound |y_port - y_jax| <= (|K| * |x_port -
+x_jax|) + 2 (`bandlimit_bar`), with x the 12 phase streams of the same
+blocks made by each package, which themselves meet `cboc_bar`."""
 
 import dataclasses
 
@@ -12,13 +16,20 @@ import torch
 
 from galileo_sdr_sim_tpu.io.stream import StreamingSynthesizer as JaxStream
 from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
+from galileo_sdr_sim_tpu.models.e1 import E1_OS
+from galileo_sdr_sim_tpu.ops import bandlimit as jbl
+from galileo_sdr_sim_tpu.ops import synth_kp as jkp
 from galileo_sdr_sim_tpu_torch import cli
 from galileo_sdr_sim_tpu_torch.device import resolve_device
-from galileo_sdr_sim_tpu_torch.harness import engine_bar
+from galileo_sdr_sim_tpu_torch.harness import bandlimit_bar, cboc_bar, engine_bar
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
+from galileo_sdr_sim_tpu_torch.ops import bandlimit as tbl
+from galileo_sdr_sim_tpu_torch.ops.synth_kp import mu_in_envelope
 
 from _torch_parity import CPU, LLH, NAV, START, fixture_engine
 from conftest import CollectSink
+
+NS = 10400  # 8 x 1300-sample test epochs
 
 
 def _jax_stream(engine, **kw) -> np.ndarray:
@@ -34,12 +45,39 @@ def _torch_stream(engine, **kw):
     return np.concatenate([b.reshape(-1) for b in sink.blocks]), stats
 
 
+def _phase_streams(batches, nsamples, block_epochs, apply_gain):
+    """The 12 phase streams of each block's real epochs, (12, n) int16
+    flat in stream order, from the port and from the JAX package."""
+    xs_t, xs_j, cache = [], [], {}
+    for batch in batches:
+        n = batch.f_code.shape[0]
+        x_t = tbl.synth_phases(batch, nsamples, block_epochs, cache, apply_gain, device=CPU)
+        x_j = np.stack([
+            np.asarray(jkp.synth_block_kp(
+                jkp.prepare_kp_inputs(jbl.phase_shift_batch(batch, j), nsamples,
+                                      pad_epochs=block_epochs, apply_gain=apply_gain),
+                n_k=nsamples // 1300, engine="xla"))
+            for j in range(12)
+        ])
+        xs_t.append(x_t.numpy()[:, :n].reshape(12, -1))
+        xs_j.append(x_j[:, :n].reshape(12, -1))
+    return np.concatenate(xs_t, axis=1), np.concatenate(xs_j, axis=1)
+
+
+def _assert_bandlimited_pair(got, ref, batches, nsamples, block_epochs, apply_gain):
+    x_t, x_j = _phase_streams(batches, nsamples, block_epochs, apply_gain)
+    bar = cboc_bar(x_t, x_j)
+    assert bar["ok"], bar
+    bar = bandlimit_bar(got, ref, x_t, x_j)
+    assert bar["ok"], bar
+
+
 class _Teleport:
     """Fixture scene whose second epoch has a code Doppler far outside
     the kp envelope in one channel, as a live-position teleport gives."""
 
-    def __init__(self, duration_s):
-        self._engine = fixture_engine(duration_s)
+    def __init__(self, duration_s, model=E1_OS):
+        self._engine = fixture_engine(duration_s, model)
         self.model = self._engine.model
 
     def batches(self, block_epochs, start=1):
@@ -98,18 +136,136 @@ def test_stream_out_of_envelope_epoch_goes_direct():
 
 @pytest.mark.parametrize("option", [
     {"pipeline_depth": 2}, {"checkpoint_path": "x.ckpt"}, {"drain_host": False},
-    {"bandlimit": True}, {"apply_gain": True},
 ])
 def test_unported_stream_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StreamingSynthesizer(fixture_engine(0.3), CollectSink(), device=CPU, **option)
 
 
-def test_cboc_model_raises():
+# --- CBOC, gain and the band-limited stream -------------------------------
+
+
+@pytest.mark.parametrize("apply_gain", [False, True])
+def test_stream_cboc_matches_jax(apply_gain):
+    kw = dict(nsamples=NS, apply_gain=apply_gain, block_epochs=3)
+    got, stats = _torch_stream(fixture_engine(0.5, E1_CBOC), **kw)
+    ref = _jax_stream(fixture_engine(0.5, E1_CBOC), synth_engine="kp", **kw)
+    assert stats.epochs == 4 and got.size == ref.size == 4 * 2 * NS
+    bar = cboc_bar(got, ref)
+    assert bar["ok"], bar
+
+
+def test_stream_gain_matches_jax():
+    kw = dict(nsamples=NS, apply_gain=True)
+    got, _ = _torch_stream(fixture_engine(0.5), **kw)
+    ref = _jax_stream(fixture_engine(0.5), synth_engine="kp", **kw)
+    bar = engine_bar(got, ref)
+    assert bar["ok"], bar
+    plain, _ = _torch_stream(fixture_engine(0.5), nsamples=NS)
+    assert (got != plain).mean() > 0.5  # the gain is applied
+
+
+@pytest.mark.parametrize("apply_gain", [False, True])
+def test_stream_bandlimit_matches_jax(apply_gain):
+    """Blocks of 3 epochs, the second a partial one (1 epoch): the overlap
+    state crosses a block edge and a partial block in both packages."""
+    kw = dict(nsamples=NS, apply_gain=apply_gain, block_epochs=3, bandlimit=True)
+    got, stats = _torch_stream(fixture_engine(0.5, E1_CBOC), **kw)
+    ref = _jax_stream(fixture_engine(0.5, E1_CBOC), synth_engine="kp", **kw)
+    assert stats.epochs == 4 and got.size == ref.size
+    assert {"scenario", "host_prep+dispatch", "device_wait+fetch", "sink_write"} <= set(
+        stats.timer.sections
+    )
+    batches = list(fixture_engine(0.5, E1_CBOC).batches(3))
+    _assert_bandlimited_pair(got, ref, batches, NS, 3, apply_gain)
+
+
+def test_bandlimit_fallback_block_is_pointwise_and_keeps_the_state():
+    """The documented seam (docs/bandlimit.md, known seams), on both
+    sides: a block with an epoch outside the kp envelope goes pointwise
+    through the direct engine, and the next block filters from the
+    overlap state the fallback block left untouched (here the zero
+    state)."""
+    kw = dict(nsamples=NS, tile=2048, block_epochs=2, bandlimit=True)
+    got, stats = _torch_stream(_Teleport(0.5, E1_CBOC), **kw)
+    ref = _jax_stream(_Teleport(0.5, E1_CBOC), synth_engine="kp", **kw)
+    assert "fallback_direct" in stats.timer.sections
+    batches = list(_Teleport(0.5, E1_CBOC).batches(2))
+    assert [mu_in_envelope(b.f_code) for b in batches] == [False, True]
+    cut = 2 * 2 * NS  # the fallback block: 2 epochs of interleaved I/Q
+    bar = cboc_bar(got[:cut], ref[:cut])
+    assert bar["ok"], bar
+    _assert_bandlimited_pair(got[cut:], ref[cut:], batches[1:], NS, 2, False)
+    fresh, _ = tbl.synth_block_cboc_bandlimited(batches[1], NS, pad_epochs=2, device=CPU)
+    np.testing.assert_array_equal(got[cut:], fresh.numpy().reshape(-1))
+
+
+def test_direct_fallback_ignores_gain():
+    """As in the JAX executor, a fallback block is synthesized without
+    the per-channel gain; the kp blocks around it carry it."""
+    kw = dict(nsamples=NS, tile=2048, block_epochs=2)
+    with_gain, _ = _torch_stream(_Teleport(0.5), apply_gain=True, **kw)
+    without, _ = _torch_stream(_Teleport(0.5), **kw)
+    ref = _jax_stream(_Teleport(0.5), synth_engine="kp", apply_gain=True, **kw)
+    cut = 2 * 2 * NS
+    np.testing.assert_array_equal(with_gain[:cut], without[:cut])
+    assert (with_gain[cut:] != without[cut:]).mean() > 0.5
+    bar = engine_bar(with_gain, ref)
+    assert bar["ok"], bar
+
+
+@pytest.mark.parametrize("option", [
+    dict(synth_engine="direct"), dict(mode="lut512"), dict(nsamples=26000),
+])
+def test_bandlimit_needs_the_kp_engine(option):
+    for Stream, kw in ((JaxStream, {}), (StreamingSynthesizer, dict(device=CPU))):
+        with pytest.raises(ValueError, match="factorized"):
+            Stream(fixture_engine(0.3, E1_CBOC), CollectSink(), bandlimit=True, **option, **kw)
+
+
+def test_bandlimit_needs_the_cboc_model():
+    for Stream, kw in ((JaxStream, {}), (StreamingSynthesizer, dict(device=CPU))):
+        with pytest.raises(ValueError, match="CBOC"):
+            Stream(fixture_engine(0.3), CollectSink(), bandlimit=True, **kw)
+
+
+def test_other_signal_geometries_route_direct():
     engine = fixture_engine(0.3)
-    engine.model = E1_CBOC
-    with pytest.raises(NotImplementedError, match="CBOC"):
-        StreamingSynthesizer(engine, CollectSink(), device=CPU)
+    engine.model = dataclasses.replace(E1_CBOC, code_subdiv=4)
+    assert StreamingSynthesizer(engine, CollectSink(), device=CPU).synth_engine == "direct"
+    assert StreamingSynthesizer(fixture_engine(0.3, E1_CBOC), CollectSink(), device=CPU).synth_engine == "kp"
+
+
+@pytest.mark.parametrize("options", [
+    ["--model", "cboc"], ["--apply-gain"], ["--bandlimit"], ["--bandlimit", "--apply-gain"],
+])
+def test_cli_main_on_cpu_runs_cboc_gain_and_bandlimit(tmp_path, options):
+    """`cli.main --device cpu` with each new option, 2 full 0.1 s epochs
+    in blocks of 2, against the JAX StreamingSynthesizer on the same
+    scene; --bandlimit implies --model cboc on both sides."""
+    um = tmp_path / "static.csv"
+    um.write_text(",".join(str(v) for v in LLH) + "\n")
+    out = tmp_path / "port.ishort"
+    rc = cli.main([
+        "-e", str(NAV), "-U", "1", "-b", "1", "-d", "0.2", "-t", START,
+        "-l", ",".join(str(v) for v in LLH), "-o", str(out),
+        "--device", "cpu", "-u", str(um), "--block-epochs", "2", *options,
+    ])
+    assert rc == 0
+    got = np.fromfile(out, dtype=np.int16)
+    cboc = "--model" in options or "--bandlimit" in options
+    model = E1_CBOC if cboc else E1_OS
+    engine = lambda: fixture_engine(0.2, model)  # noqa: E731
+    n_epochs = len(engine())
+    assert got.size == n_epochs * 2 * 260000
+    kw = dict(block_epochs=2, apply_gain="--apply-gain" in options,
+              bandlimit="--bandlimit" in options)
+    ref = _jax_stream(engine(), synth_engine="kp", **kw)
+    if kw["bandlimit"]:
+        _assert_bandlimited_pair(got, ref, list(engine().batches(2)), 260000, 2, kw["apply_gain"])
+    else:
+        bar = (cboc_bar if cboc else engine_bar)(got, ref)
+        assert bar["ok"], bar
 
 
 def test_engine_flag_routes():

@@ -101,14 +101,24 @@ def test_amplitude_in_symbol_window_is_refused():
 
 
 def test_unported_branches_raise(batch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkp.prepare_kp_inputs(batch, 10400, device=CPU, apply_gain=True)
-    wide = dataclasses.replace(
-        batch, codes_b=np.repeat(batch.codes_b, 6, axis=1), codes_c=np.repeat(batch.codes_c, 6, axis=1)
-    )
-    with pytest.raises(NotImplementedError, match="CBOC"):
+    """The table geometries the factorized engine does not take are
+    refused, as the JAX package refuses them: a 12-grid table whose
+    entries do not factor over +-1 half-chip banks (a sine-BOC table
+    repeated 6x factors, with alpha = 1 and beta = 0, until one
+    sub-position is scaled) and any other width."""
+    wide_b = np.repeat(batch.codes_b, 6, axis=1)
+    wide_b[np.flatnonzero(batch.prn > 0)[0], 7] *= 3
+    wide = dataclasses.replace(batch, codes_b=wide_b, codes_c=np.repeat(batch.codes_c, 6, axis=1))
+    with pytest.raises(ValueError, match="does not factor"):
+        jkp.prepare_kp_inputs(wide, 10400)
+    with pytest.raises(ValueError, match="does not factor"):
         tkp.prepare_kp_inputs(wide, 10400, device=CPU)
-    with pytest.raises(NotImplementedError):
+    odd = dataclasses.replace(
+        batch, codes_b=np.repeat(batch.codes_b, 3, axis=1), codes_c=np.repeat(batch.codes_c, 3, axis=1)
+    )
+    with pytest.raises(ValueError, match="table width"):
+        tkp.prepare_kp_inputs(odd, 10400, device=CPU)
+    with pytest.raises(ValueError, match="vpack_rs"):
         kp_inputs_from_jax({"cboc_ab": np.zeros(2, np.float32)}, CPU)
 
 
