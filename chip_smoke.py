@@ -4,9 +4,9 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit); a CUDA device is required;
-2. build of the CUDA kernel csrc/synth_kp_v5.cu (its four
-   instantiations: sine-BOC or CBOC, without or with per-channel gain)
-   from this checkout;
+2. build of the CUDA kernel csrc/synth_kp_v5.cu (its six
+   instantiations: sine-BOC or CBOC, without or with per-channel gain,
+   and the f32 emit of sine-BOC and CBOC) from this checkout;
 3. each instantiation against its plain PyTorch version on the card, at
    B=8 epochs x 200 rows x 1300 samples, C=8 and C=16 channels, on
    seeded synthetic operands (adversarial cases included) and on one
@@ -14,7 +14,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    instantiations), held to the engine bar (>= 99.9% of int16 values
    identical, every difference <= 1000; `cboc_bar`, >= 99.8%, for
    CBOC); the int16 view against its plain version;
-4. the main paths through the port's CLI (file sink, fixture nav file,
+4. the kernel's f32 emit (sine-BOC and CBOC) against its plain version
+   on the same operands as in 3, plus one uncompacted fixture block
+   (C = 16): its truncation held to the engine bar (`cboc_bar`) and
+   bit-equal to the packed kernel's output;
+5. the main paths through the port's CLI (file sink, fixture nav file,
    at Boston), each with the launch counts set to 0 just before it and
    read just after: the default run (3 s), `--model cboc` and
    `--apply-gain` (1 s each), `--model cboc --apply-gain` (3 s) and
@@ -25,12 +29,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
    band-limited acquisition test, where the run weights channels by
    their gain, whose weakest visible one sits at 0.43 of the strongest,
    or is band-limited);
-5. timings with CUDA events (kernel vs plain version for each
-   instantiation, median of 25 samples of 10 back-to-back calls, after
-   warm-up; the band-limit filter per block), the end-to-end file-sink
-   rate of a 30 s default run and of a 10 s `--bandlimit` run (3 runs
-   each), each with its stage split, and the device time of a 5 s
-   `--bandlimit` run under torch.profiler.
+6. the multi-process paths: the CLI in distributed mode as one NCCL
+   process (3 s; only the f32 instantiation runs, once a block; the file
+   is byte-identical to the default run's and acquires); the sharded
+   CBOC path (`mesh.synth_batch_kp_sharded`, world of one) against the
+   packed CBOC kernel; two ranks sharing the card over gloo on CUDA
+   tensors (tests/_torch_dist_worker.py, mode "card"): 3 s over the
+   (sat 2, time 1) mesh, 16 uncompacted channels, 8 a rank, and over a
+   (sat 1, time 2) mesh, each held to the default run's file by the
+   psum bar (>= 99.9% identical, no sample off by more than 1 LSB), the
+   first acquired;
+7. timings with CUDA events (kernel vs plain version for each
+   instantiation and the f32 emit, median of 25 samples of 10
+   back-to-back calls, after warm-up; the band-limit filter per block;
+   the all-reduce of one block's float32 partial, NCCL in one rank and
+   gloo in two), the end-to-end file-sink rate of a 30 s default run and
+   of a 10 s `--bandlimit` run (3 runs each), of a 10 s one-process
+   distributed run (3 runs) and of a 10 s two-rank run, each with its
+   stage split, and the device time of a 5 s `--bandlimit` run under
+   torch.profiler.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -38,6 +55,8 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -50,13 +69,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "galileo_sdr_sim_tpu_torch"
 NAV = ROOT / "tests" / "data" / "obs_fixture_nav.rnx"
+DIST_WORKER = ROOT / "tests" / "_torch_dist_worker.py"
 B, N_K = 8, 200
+NSAMP = N_K * 1300
 ABSENT_PRNS = (1, 2, 3)  # below the horizon in the fixture scene
 MIN_METRIC = 8.0
 # runs with --apply-gain (PRN 33 weighs 0.43 of the strongest channel and
 # reads ~7.9) and band-limited runs: tests/test_bandlimit.py's level
 MIN_METRIC_WEAK = 6.0
 E2E_RUNS = 3  # scenario runs through the CLI's build_run
+RANKS_TIMEOUT_S = 600  # the two-rank phase, both ranks together
 # instantiation -> the operand variant that selects it
 VARIANTS = {
     "synth_kp_v5": {},
@@ -77,6 +99,24 @@ def card() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def psum_bar(got: np.ndarray, ref: np.ndarray) -> dict:
+    """Sharded against single-process int16 output: the all-reduce
+    reassociates the float32 channel sum (JAX package's PSUM_* bounds)."""
+    from galileo_sdr_sim_tpu.parallel.distributed import PSUM_MAX_LSB, PSUM_SAMPLE_IDENTITY_BOUND
+
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    match, max_err = float((diff == 0).mean()), int(diff.max())
+    return {"match": match, "max_abs_err": max_err,
+            "ok": got.shape == ref.shape and match >= PSUM_SAMPLE_IDENTITY_BOUND
+            and max_err <= PSUM_MAX_LSB}
 
 
 def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
@@ -109,8 +149,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    import torch.distributed as dist
+
     from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
     from galileo_sdr_sim_tpu.models.e1 import E1_OS
+    from galileo_sdr_sim_tpu.profiling import Timer
     from galileo_sdr_sim_tpu.rx_track import acquire, iq_to_complex
     from galileo_sdr_sim_tpu_torch import cli
     from galileo_sdr_sim_tpu_torch.harness import (
@@ -119,8 +162,11 @@ def main() -> int:
     )
     from galileo_sdr_sim_tpu_torch.ops import bandlimit, synth_kp_cuda
     from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
-        prepare_kp_inputs, synth_kp_int16_ref, synth_kp_packed_ref,
+        pack_iq, packed_to_iq16, prepare_kp_inputs, synth_kp_accum_ref, synth_kp_int16_ref,
+        synth_kp_packed_ref,
     )
+    from galileo_sdr_sim_tpu_torch.parallel import distributed as D
+    from galileo_sdr_sim_tpu_torch.parallel import mesh as M
 
     # --- 2. build --------------------------------------------------------
     _, built = synth_kp_cuda.library()
@@ -169,33 +215,41 @@ def main() -> int:
     check(bar["ok"], f"int16 view: {bar}")
     worst_int16 = bar["max_abs_err"]
 
+    # --- 4. the f32 emit vs its plain version and the packed store --------
+    F32 = {"synth_kp_v5_f32": False, "synth_kp_v5_cboc_f32": True}
+    for name, cboc in F32.items():
+        bar_fn = cboc_bar if cboc else engine_bar
+        model = E1_CBOC if cboc else E1_OS
+        batch = next(fixture_engine(NAV, 1.0, model).batches(B))
+        cases = [(C, case, synthetic_kp_inputs(B, C, 100 + C, case, dev, cboc=cboc))
+                 for C in (8, 16) for case in CASES]
+        cases.append((16, "fixture block uncompacted",
+                      prepare_kp_inputs(batch, NSAMP, pad_epochs=B, device=dev, compact=False)))
+        worst[name] = 0
+        for C, case, inputs in cases:
+            check(synth_kp_cuda.instantiation(inputs, f32=True) == name, f"{name}: operands")
+            got = synth_kp_cuda.synth_kp_accum(inputs, N_K)
+            ref = synth_kp_accum_ref(inputs, N_K)
+            packed = synth_kp_cuda.synth_kp_packed(inputs, N_K)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and tuple(got.shape) == (B, NSAMP, 2),
+                  f"f32 output {got.dtype}{tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{name} C={C} {case}: non-finite values")
+            bar = bar_fn(pack_iq(got), pack_iq(ref))
+            same = torch.equal(pack_iq(got), packed)
+            print(f"compare {name} C={C} {case}: match={bar['match']:.6f} "
+                  f"max_abs_err={bar['max_abs_err']} trunc bit-equal to packed={same}")
+            check(bar["ok"], f"{name} at C={C} {case}: {bar}")
+            check(same, f"{name} at C={C} {case}: truncation differs from the packed store")
+            worst[name] = max(worst[name], bar["max_abs_err"])
+
     llh = ",".join(str(v) for v in FIXTURE_LLH)
     launches = dict.fromkeys(VARIANTS, 0)
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as tmp:
-        # --- 4. the main paths through the CLI ----------------------------
-        def main_path(options: list, duration: float, name: str, min_metric: float,
-                      blocks_x: int = 1) -> dict:
-            """Drive cli.main once with the counts reset just before and
-            read just after; check the file and acquire it."""
-            out = Path(tmp) / "smoke.ishort"
-            argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-d", str(duration),
-                    "-t", FIXTURE_START, "-l", llh, "-o", str(out), *options]
-            synth_kp_cuda.reset_counts()
-            rc = cli.main(argv)
-            counts = dict(synth_kp_cuda.launch_counts)
-            int16 = synth_kp_cuda.int16_launch_count
-            label = " ".join(options) or "default"
-            print(f"main path {label}: rc={rc} launches={counts} int16 views={int16}")
-            check(rc == 0, f"cli.main {label} returned {rc}")
-            model = E1_CBOC if "--model" in options or "--bandlimit" in options else E1_OS
-            epochs = len(fixture_engine(NAV, duration, model))
-            n_blocks = -(-epochs // B)
-            check(counts[name] == n_blocks * blocks_x,
-                  f"{label}: {counts[name]} launches of {name}, want {n_blocks * blocks_x}")
-            check(sum(counts.values()) == counts[name], f"{label}: other instantiations ran")
-            size = out.stat().st_size
-            print(f"main path {label}: {size} bytes for {epochs} epochs")
-            check(size == epochs * 260000 * 4, f"file holds {size} bytes, want {epochs} x 260000 x 4")
+        # --- 5. the main paths through the CLI ----------------------------
+        def acquire_file(out: Path, label: str, model, min_metric: float) -> None:
+            """PCPS acquisition of the file's first 6 ms: every active PRN
+            of the scene at its Doppler, the absent ones below the bar."""
             x = iq_to_complex(np.fromfile(out, dtype=np.int16, count=2 * 15600))
             check(bool(np.all(np.isfinite(x))), "non-finite samples")
             first = next(fixture_engine(NAV, 1.0, model).batches(B))
@@ -211,10 +265,46 @@ def main() -> int:
                 a = acquire(x, prn)
                 print(f"acquire {label} absent PRN {prn:2d}: metric {a.metric:6.1f}")
                 check(a.metric < min_metric, f"{label}: false acquisition of absent PRN {prn}")
-            out.unlink()
+
+        def main_path(options: list, duration: float, name: str, min_metric: float,
+                      blocks_x: int = 1, env: dict | None = None, keep: str = "") -> dict:
+            """Drive cli.main once with the counts reset just before and
+            read just after, with `env` set for the call; check the file
+            and acquire it; keep it as tmp/`keep` when named."""
+            out = Path(tmp) / (keep or "smoke.ishort")
+            argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-d", str(duration),
+                    "-t", FIXTURE_START, "-l", llh, "-o", str(out), *options]
+            os.environ.update(env or {})
+            try:
+                synth_kp_cuda.reset_counts()
+                rc = cli.main(argv)
+                counts = dict(synth_kp_cuda.launch_counts)
+                int16 = synth_kp_cuda.int16_launch_count
+            finally:
+                for key in env or {}:
+                    del os.environ[key]
+            label = " ".join(options) or "default"
+            if env:
+                label += " distributed"
+            print(f"main path {label}: rc={rc} launches={counts} int16 views={int16}")
+            check(rc == 0, f"cli.main {label} returned {rc}")
+            model = E1_CBOC if "--model" in options or "--bandlimit" in options else E1_OS
+            epochs = len(fixture_engine(NAV, duration, model))
+            n_blocks = -(-epochs // B)
+            check(counts[name] == n_blocks * blocks_x,
+                  f"{label}: {counts[name]} launches of {name}, want {n_blocks * blocks_x}")
+            check(sum(counts.values()) == counts[name], f"{label}: other instantiations ran")
+            size = out.stat().st_size
+            print(f"main path {label}: {size} bytes for {epochs} epochs")
+            check(size == epochs * NSAMP * 4, f"file holds {size} bytes, want {epochs} x {NSAMP} x 4")
+            acquire_file(out, label, model, min_metric)
+            if not keep:
+                out.unlink()
             return {"counts": counts, "int16": int16}
 
-        launches["synth_kp_v5"] = main_path([], 3, "synth_kp_v5", MIN_METRIC)["counts"]["synth_kp_v5"]
+        launches["synth_kp_v5"] = main_path(
+            [], 3, "synth_kp_v5", MIN_METRIC, keep="default.ishort")["counts"]["synth_kp_v5"]
+        default_iq = np.fromfile(Path(tmp) / "default.ishort", dtype=np.int16)
         launches["synth_kp_v5_cboc"] = main_path(
             ["--model", "cboc"], 1, "synth_kp_v5_cboc", MIN_METRIC)["counts"]["synth_kp_v5_cboc"]
         launches["synth_kp_v5_gain"] = main_path(
@@ -229,7 +319,111 @@ def main() -> int:
               "the band-limited run did not go through the int16 view")
         launches_int16 = bl["int16"]
 
-        # --- 5. timings --------------------------------------------------
+        # --- 6. the multi-process paths ------------------------------------
+        # the CLI in distributed mode, one NCCL process: every block through
+        # the f32 emit and the (one-rank) all-reduce
+        dist_env = {D.ENV_COORD: f"127.0.0.1:{free_port()}", D.ENV_NPROC: "1", D.ENV_PID: "0"}
+        launches["synth_kp_v5_f32"] = main_path(
+            [], 3, "synth_kp_v5_f32", MIN_METRIC, env=dist_env, keep="dist1.ishort"
+        )["counts"]["synth_kp_v5_f32"]
+        check(not dist.is_initialized(), "the CLI left its process group initialized")
+        same = np.array_equal(np.fromfile(Path(tmp) / "dist1.ishort", dtype=np.int16), default_iq)
+        print(f"distributed one-process file byte-identical to the default run's: {same}")
+        check(same, "the one-process distributed file differs from the default run's")
+
+        # the sharded CBOC path (replicated weights) in a world of one, the
+        # NCCL all-reduce per block, and the distributed end-to-end rate
+        D.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+        try:
+            mesh = D.global_mesh("cuda")
+            check(mesh.shape == {"sat": 1, "time": 1}, f"mesh {mesh.shape}")
+            synth_kp_cuda.reset_counts()
+            sharded = [M.synth_batch_kp_sharded(batch, mesh)
+                       for batch in fixture_engine(NAV, 3.0, E1_CBOC).batches(B)]
+            counts = dict(synth_kp_cuda.launch_counts)
+            print(f"mesh path cboc: launches={counts}")
+            n_blocks = len(sharded)
+            check(counts["synth_kp_v5_cboc_f32"] == n_blocks and sum(counts.values()) == n_blocks,
+                  f"mesh path cboc: {counts}, want {n_blocks} of synth_kp_v5_cboc_f32 only")
+            launches["synth_kp_v5_cboc_f32"] = counts["synth_kp_v5_cboc_f32"]
+            single = [packed_to_iq16(synth_kp_cuda.synth_kp_packed(
+                prepare_kp_inputs(batch, NSAMP, device=dev), N_K).cpu().numpy())
+                for batch in fixture_engine(NAV, 3.0, E1_CBOC).batches(B)]
+            same = all(np.array_equal(a, b) for a, b in zip(sharded, single))
+            print(f"mesh path cboc ({n_blocks} blocks) identical to the packed CBOC kernel: {same}")
+            check(same, "the sharded CBOC path differs from the packed CBOC kernel")
+
+            acc = torch.ones((B, NSAMP, 2), dtype=torch.float32, device=dev)
+            nccl_ms = median_ms(lambda: dist.all_reduce(acc, group=mesh.sat_group))
+            print(f"time all_reduce NCCL 1 rank, ({B}, {NSAMP}, 2) float32: {nccl_ms:.4f} ms ({gpu})")
+
+            dist_rates = []
+            for rep in range(E2E_RUNS):
+                args = cli.build_torch_parser().parse_args(
+                    ["-e", str(NAV), "-U", "1", "-b", "1", "-d", "10", "-t", FIXTURE_START,
+                     "-l", llh, "-o", str(Path(tmp) / "e2e_dist.ishort")])
+                engine, servers = cli.build_engine(args)
+                timer = Timer()
+                try:
+                    t0 = time.perf_counter()
+                    n = D.generate_file_distributed(engine, Path(tmp) / "e2e_dist.ishort",
+                                                    mesh=mesh, timer=timer)
+                    wall = time.perf_counter() - t0
+                finally:
+                    servers.stop()
+                dist_rates.append(n * NSAMP / wall)
+                print(f"e2e distributed 1 rank run {rep}: {n} epochs in {wall:.3f} s = "
+                      f"{dist_rates[-1]:.0f} samples/s ({gpu})")
+                print(timer.report())
+            print(f"e2e distributed 1 rank median of {E2E_RUNS}: {np.median(dist_rates):.0f} "
+                  f"samples/s ({gpu})")
+        finally:
+            dist.destroy_process_group()
+
+        # two ranks sharing the card: gloo on CUDA tensors
+        ranks_dir = Path(tmp) / "ranks"
+        ranks_dir.mkdir()
+        init = f"file://{ranks_dir / 'rendezvous'}"
+        procs = [subprocess.Popen(
+            [sys.executable, str(DIST_WORKER), "card", init, "2", str(rank), str(ranks_dir)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+            for rank in range(2)]
+        try:
+            rank_outs = [p.communicate(timeout=RANKS_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        cards = []
+        for rank, (p, out) in enumerate(zip(procs, rank_outs)):
+            check(p.returncode == 0 and f"RANK {rank} OK" in out,
+                  f"two-rank worker {rank} failed (rc {p.returncode}):\n{out[-3000:]}")
+            cards.append(json.loads(next(ln for ln in out.splitlines() if ln.startswith("CARD "))[5:]))
+        epochs3 = len(fixture_engine(NAV, 3.0))
+        for card_ in cards:
+            counts = card_["counts"]
+            print(f"two ranks, rank {card_['rank']} on {card_['device']}, mesh {card_['mesh']}: "
+                  f"{card_['epochs']} epochs, launches={counts}")
+            check(card_["mesh"] == {"sat": 2, "time": 1}, f"two-rank mesh {card_['mesh']}")
+            check(card_["epochs"] == epochs3, f"two-rank run wrote {card_['epochs']} epochs")
+            check(counts["synth_kp_v5_f32"] == -(-epochs3 // B) and sum(counts.values())
+                  == counts["synth_kp_v5_f32"], f"two-rank launches {counts}")
+        for fname in ("two_rank.ishort", "time2.ishort"):
+            got = np.fromfile(ranks_dir / fname, dtype=np.int16)
+            bar = psum_bar(got, default_iq)
+            print(f"two ranks {fname} vs single-process: match={bar['match']:.6f} "
+                  f"max_abs_err={bar['max_abs_err']}")
+            check(bar["ok"], f"two ranks {fname}: {bar}")
+        acquire_file(ranks_dir / "two_rank.ishort", "two ranks", E1_OS, MIN_METRIC)
+        gloo_ms = float(np.median(cards[0]["allreduce_ms"]))
+        print(f"time all_reduce gloo 2 ranks on one card, ({B}, {NSAMP}, 2) float32: median "
+              f"{gloo_ms:.3f} ms of {cards[0]['allreduce_ms']} ({gpu})")
+        for card_ in cards:
+            print(f"e2e two ranks, rank {card_['rank']}: {card_['e2e_epochs']} epochs in "
+                  f"{card_['e2e_wall_s']:.3f} s = {card_['e2e_samples_per_sec']:.0f} samples/s ({gpu})")
+            print(card_["stages"])
+
+        # --- 7. timings --------------------------------------------------
         times = {}
         for C in (8, 16):
             inputs = synthetic_kp_inputs(B, C, 100 + C, "random", dev)
@@ -251,6 +445,14 @@ def main() -> int:
         kern16 = median_ms(lambda: synth_kp_cuda.synth_kp_int16(inputs16, N_K))
         print(f"time int16 view (cboc_gain) B={B} n_k={N_K} C=8: kernel {kern16:.4f} ms, "
               f"plain {plain16:.4f} ms ({gpu})")
+        for name, cboc in F32.items():
+            inputs = synthetic_kp_inputs(B, 8, 108, "random", dev, cboc=cboc)
+            plain = median_ms(lambda: synth_kp_accum_ref(inputs, N_K))
+            kern = median_ms(lambda: synth_kp_cuda.synth_kp_accum(inputs, N_K))
+            packed = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
+            times[(name, 8)] = (kern, plain)
+            print(f"time {name} B={B} n_k={N_K} C=8: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+                  f"packed store {packed:.4f} ms ({gpu})")
         rng = np.random.default_rng(0)
         stack = torch.from_numpy(
             rng.integers(-2500, 2500, (bandlimit.OS, B, 2 * 260000)).astype(np.int16)).to(dev)
@@ -316,7 +518,7 @@ def main() -> int:
             print(f"  {us / 1e3:9.3f} ms  {count:5d} x  {key[:100]}")
 
     entries = []
-    for name in VARIANTS:
+    for name in (*VARIANTS, *F32):
         kern, plain = times[(name, 8)]
         entries.append({
             "name": name,

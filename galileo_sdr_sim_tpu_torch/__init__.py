@@ -8,11 +8,13 @@ and replaces the device layer:
                        plain PyTorch version;
 * ops/synth_kp_cuda.py the hand-written CUDA kernel (csrc/synth_kp_v5.cu)
                        that replaces the Pallas kernel `_kernel_v5` in its
-                       sine-BOC/CBOC, gain and int16 branches;
+                       sine-BOC/CBOC, gain, int16 and f32 branches;
 * ops/bandlimit.py     the band-limited CBOC mode (12 kernel phases and a
                        polyphase filter);
 * ops/synth.py         the direct engine (fallback and lut512 parity);
 * io/stream.py         the streaming executor;
+* parallel/mesh.py     the (time, sat) rank mesh over torch.distributed;
+* parallel/distributed.py  multi-process file generation;
 * cli.py               the command line (`python -m galileo_sdr_sim_tpu_torch.cli`).
 
 Nothing here imports JAX.

@@ -8,9 +8,13 @@ Reuses the JAX package's JAX-free parser and helpers and follows its
 factorized engine (the CUDA kernel on a GPU, its plain PyTorch version on
 the CPU) and `--engine direct` the direct engine; `--model cboc`,
 `--apply-gain` and `--bandlimit` (which implies `--model cboc`) run as
-in the JAX package.  Distributed mode, the USRP sink, --trace-dir and
-the options listed in io/stream.py are not ported yet and stop with an
-error naming their ROADMAP item.
+in the JAX package.  With GALILEO_COORDINATOR, GALILEO_NUM_PROCESSES and
+GALILEO_PROCESS_ID set on every process, the same command line writes the
+file cooperatively (parallel/distributed.py): NCCL and the kernel under
+`--device cuda`, one process per GPU; gloo and the plain versions under
+`--device cpu`.  The USRP sink, --trace-dir and the options listed in
+io/stream.py are not ported yet and stop with an error naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import os
 import signal
 import sys
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -62,9 +67,8 @@ class Run:
 
 
 def _refuse_unported(args) -> str | None:
-    if os.environ.get(ENV_COORD):
-        return ("ERROR: distributed mode is not ported to the PyTorch engine "
-                "yet (ROADMAP queue 1 item 11).")
+    if os.environ.get(ENV_COORD) and args.disable_usrp is None:
+        return "ERROR: distributed mode supports the file sink only (-U 1)."
     if args.disable_usrp is None:
         return ("ERROR: the USRP sink is not ported to the PyTorch engine yet "
                 "(ROADMAP queue 1 item 6); use the file sink (-U 1).")
@@ -74,11 +78,10 @@ def _refuse_unported(args) -> str | None:
     return None
 
 
-def build_run(args) -> Run:
-    """Everything `main` sets up before synthesis: nav data, start time,
-    position source, bit relay, scenario engine, sink and executor."""
-    device = resolve_device(args.device)
-
+def build_engine(args) -> tuple:
+    """Nav data, start time, position source, bit relay and scenario
+    engine -> (engine, the live-position UdpServers or None); the caller
+    stops the servers."""
     nav = read_rinex_v3(args.navfile)
     if args.iono_disable:
         nav.iono.enable = False
@@ -127,7 +130,19 @@ def build_run(args) -> Run:
         engine = ScenarioEngine(nav, position, g0, args.duration,
                                 verbose=args.verbose, bit_source=bit_source,
                                 model=signal_model)
+    except BaseException:
+        if servers is not None:
+            servers.stop()
+        raise
+    return engine, servers
 
+
+def build_run(args) -> Run:
+    """Everything `main` sets up before synthesis: the scenario engine
+    (`build_engine`), sink and executor."""
+    device = resolve_device(args.device)
+    engine, servers = build_engine(args)
+    try:
         from galileo_sdr_sim_tpu.io.sinks import FileSink
 
         from .io.stream import StreamingSynthesizer
@@ -143,7 +158,7 @@ def build_run(args) -> Run:
                 from galileo_sdr_sim_tpu.noise import AwgnSink
 
                 sink = AwgnSink(sink, args.noise_cn0)
-            status_cb = _status_printer(engine, g0) if args.verbose else None
+            status_cb = _status_printer(engine, engine.g0) if args.verbose else None
             block_epochs = args.block_epochs or (1 if args.interactive else 8)
             synth = StreamingSynthesizer(
                 engine, sink, device=device, mode=args.mode,
@@ -198,6 +213,8 @@ def main(argv=None) -> int:
     if refusal:
         print(refusal)
         return 1
+    if os.environ.get(ENV_COORD):
+        return _main_distributed(args)
 
     run = build_run(args)
 
@@ -218,6 +235,35 @@ def main(argv=None) -> int:
     )
     if args.verbose:
         sys.stderr.write(stats.stage_report() + "\n")
+    return 0
+
+
+def _main_distributed(args) -> int:
+    """Multi-process file generation (galileo_sdr_sim_tpu/cli.py:326-344):
+    join the group the environment names, write this process's share of
+    the file, leave the group.  As in the JAX package, --apply-gain and
+    --bandlimit are not applied in this mode."""
+    from torch import distributed as dist
+
+    from .parallel.distributed import generate_file_distributed, maybe_initialize_from_env
+
+    device = resolve_device(args.device)
+    maybe_initialize_from_env("gloo" if device.type == "cpu" else "nccl")
+    try:
+        engine, servers = build_engine(args)
+        try:
+            t0 = time.monotonic()
+            n = generate_file_distributed(
+                engine, args.outfile, block_epochs=args.block_epochs or 8,
+                device_type=device.type,
+            )
+            wall = time.monotonic() - t0
+        finally:
+            if servers is not None:
+                servers.stop()
+    finally:
+        dist.destroy_process_group()
+    sys.stderr.write(f"\nDone! {n} epochs written cooperatively in {wall:.1f} s\n")
     return 0
 
 

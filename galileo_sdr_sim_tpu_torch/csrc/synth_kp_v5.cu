@@ -1,10 +1,11 @@
 // Factorized (K, p) Galileo E1 synthesis kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_kernel_v5` of
-// galileo_sdr_sim_tpu/ops/synth_kp_pallas.py in four instantiations of
-// `synth_kp_v5_kernel<CBOC, GAIN>`: sine-BOC or CBOC(6,1,1/11)
+// galileo_sdr_sim_tpu/ops/synth_kp_pallas.py in six instantiations of
+// `synth_kp_v5_kernel<CBOC, GAIN, F32>`: sine-BOC or CBOC(6,1,1/11)
 // (`cboc=True`, :171-175 and :294-304), without or with per-channel
-// gain (`use_gain=True`, :307-311).  Same math and op order: the
+// gain (`use_gain=True`, :307-311), and, without gain, the f32 emit
+// (`emit="f32"`, :342-344).  Same math and op order: the
 // per-(channel, p) prologue of _kernel_v5 (chip geometry, 5-tap select
 // from the pre-resampled window table, code-period carry planes, carrier
 // p-factor), then for every row K the sum over channels, in ascending
@@ -18,7 +19,13 @@
 // GPU the I/Q int16 pair written as one little-endian 32-bit word IS the
 // interleaved int16 layout, so the int16 output is the packed output
 // viewed as int16.  The TPU kernel writes separate I and Q planes only
-// for XLA to stack them afterwards (:537-540).
+// for XLA to stack them afterwards (:537-540).  Under F32 the store
+// writes 250*acc_i, 250*acc_q untruncated as one float2 per sample,
+// (B, n_k*1300, 2) float32: the accumulator the sat-sharded mesh path
+// all-reduces before truncation (galileo_sdr_sim_tpu/parallel/mesh.py
+// :154-156).  Every op before the store is shared, so its truncation
+// is bit-equal to the packed store; it writes 16.6 MB per B=8 block
+// against 8.3 MB, a few microseconds of HBM time.
 //
 // What bounds it on an H100: per B=8 block it writes 8 x 200 x 1300 int32
 // = 8.3 MB and does about 0.5 GFLOP of float32 work at C = 8 channels
@@ -101,7 +108,7 @@ __device__ inline float pm1(int word, int bit) {
   return 1.0f - 2.0f * (float)((word >> bit) & 1);
 }
 
-template <bool CBOC, bool GAIN>
+template <bool CBOC, bool GAIN, bool F32>
 __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
     const float* __restrict__ cp0, const float* __restrict__ two_a,
     const float* __restrict__ mu, const float* __restrict__ g0,
@@ -109,7 +116,7 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
     const float* __restrict__ carr0, const float* __restrict__ fc,
     const float* __restrict__ fc_k, const int* __restrict__ sym_bits,
     const int* __restrict__ pil_bits, const float* __restrict__ chan_gain,
-    const int8_t* __restrict__ vpack_rs, int32_t* __restrict__ out, float alpha,
+    const int8_t* __restrict__ vpack_rs, void* __restrict__ out, float alpha,
     float beta, int C, int n_k, int t_rs, int k_chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve(smem_raw, C, k_chunk);
@@ -243,31 +250,36 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
       acc_i = acc_i + m * cis_r;
       acc_q = acc_q + m * cis_i;
     }
-    const int ii = (int)truncf(AMP * acc_i);
-    const int qq = (int)truncf(AMP * acc_q);
-    out[((size_t)b * n_k + K) * P_GRID + p] =
-        (int32_t)(((uint32_t)ii & 0xFFFFu) | ((uint32_t)qq << 16));
+    const size_t at = ((size_t)b * n_k + K) * P_GRID + p;
+    if (F32) {
+      static_cast<float2*>(out)[at] = make_float2(AMP * acc_i, AMP * acc_q);
+    } else {
+      const int ii = (int)truncf(AMP * acc_i);
+      const int qq = (int)truncf(AMP * acc_q);
+      static_cast<int32_t*>(out)[at] =
+          (int32_t)(((uint32_t)ii & 0xFFFFu) | ((uint32_t)qq << 16));
+    }
   }
 }
 
-template <bool CBOC, bool GAIN>
+template <bool CBOC, bool GAIN, bool F32>
 int launch(const void* const* ops, const void* vpack_rs, void* out, float alpha,
            float beta, int B, int C, int n_k, int t_rs, int k_chunk,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(C, k_chunk);
-  cudaError_t err = cudaFuncSetAttribute(synth_kp_v5_kernel<CBOC, GAIN>,
+  cudaError_t err = cudaFuncSetAttribute(synth_kp_v5_kernel<CBOC, GAIN, F32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((P_GRID + P_TILE - 1) / P_TILE, B, (n_k + k_chunk - 1) / k_chunk);
-  synth_kp_v5_kernel<CBOC, GAIN><<<grid, P_TILE, smem, stream>>>(
+  synth_kp_v5_kernel<CBOC, GAIN, F32><<<grid, P_TILE, smem, stream>>>(
       static_cast<const float*>(ops[0]), static_cast<const float*>(ops[1]),
       static_cast<const float*>(ops[2]), static_cast<const float*>(ops[3]),
       static_cast<const int*>(ops[4]), static_cast<const float*>(ops[5]),
       static_cast<const float*>(ops[6]), static_cast<const float*>(ops[7]),
       static_cast<const float*>(ops[8]), static_cast<const int*>(ops[9]),
       static_cast<const int*>(ops[10]), static_cast<const float*>(ops[11]),
-      static_cast<const int8_t*>(vpack_rs), static_cast<int32_t*>(out), alpha, beta,
+      static_cast<const int8_t*>(vpack_rs), out, alpha, beta,
       C, n_k, t_rs, k_chunk);
   return (int)cudaGetLastError();
 }
@@ -281,25 +293,32 @@ size_t synth_kp_v5_smem_bytes(int C, int k_chunk) { return smem_bytes(C, k_chunk
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).  The
 // CBOC instantiation runs when `cboc` is non-zero (alpha, beta are then
-// its weights), the GAIN one when `chan_gain` is not null.
+// its weights), the GAIN one when `chan_gain` is not null; `f32` selects
+// the float32 store (out is then (B, n_k*1300) float2), which has no
+// GAIN instantiation (cudaErrorInvalidValue).
 int synth_kp_v5_launch(const void* cp0, const void* two_a, const void* mu,
                        const void* g0, const void* o, const void* r,
                        const void* carr0, const void* fc, const void* fc_k,
                        const void* sym_bits, const void* pil_bits,
                        const void* chan_gain, const void* vpack_rs, void* out,
-                       float alpha, float beta, int cboc, int B, int C, int n_k,
-                       int t_rs, int k_chunk, void* stream) {
+                       float alpha, float beta, int cboc, int f32, int B, int C,
+                       int n_k, int t_rs, int k_chunk, void* stream) {
   const void* ops[12] = {cp0, two_a, mu, g0, o, r, carr0, fc, fc_k,
                          sym_bits, pil_bits, chan_gain};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gain = chan_gain != nullptr;
+  if (f32 && gain) return (int)cudaErrorInvalidValue;
+  if (f32 && cboc)
+    return launch<true, false, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+  if (f32)
+    return launch<false, false, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
   if (cboc && gain)
-    return launch<true, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+    return launch<true, true, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
   if (cboc)
-    return launch<true, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+    return launch<true, false, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
   if (gain)
-    return launch<false, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
-  return launch<false, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+    return launch<false, true, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
+  return launch<false, false, false>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
 }
 
 const char* synth_kp_v5_error_string(int err) {

@@ -10,9 +10,10 @@ module's docstring for the derivation.
 `prepare_kp_inputs` computes every operand the kernel reads on the host
 in numpy (float64 seeds rounded to float32 exactly as the JAX package
 rounds them) and moves all per-epoch operands to the device in ONE
-host-to-device copy.  `synth_kp_packed_ref` is the plain PyTorch
-version of the kernel (ops/synth_kp_cuda.py): the CPU engine, and the
-reference the kernel is held to on the card.
+host-to-device copy.  `synth_kp_accum_ref` (the float32 accumulator)
+and `synth_kp_packed_ref` (its truncated, packed I/Q) are the plain
+PyTorch versions of the kernel (ops/synth_kp_cuda.py): the CPU engine,
+and the reference the kernel is held to on the card.
 
 Two optional operands select the kernel's other branches:
 * `cboc_ab`, a (2,) float32 host tensor (alpha, beta): the
@@ -283,17 +284,20 @@ def prepare_kp_inputs(
     *,
     device: torch.device,
     apply_gain: bool = False,
+    compact: bool = True,
 ) -> dict:
     """Host float64 seeding -> the kernel's operands on `device`.
 
     Seeds as galileo_sdr_sim_tpu.ops.synth_kp.prepare_kp_inputs does
-    (channels compacted, epochs padded to `pad_epochs`); the window
-    table `vpack_rs` (C, 160, 11904) int8 is cached on the device in
-    `code_cache` while the channel->PRN map and table width hold.
-    12-grid CBOC tables add `cboc_ab` (their factorization is checked
-    when the table is built); `apply_gain` adds `chan_gain`.
+    (channels compacted unless `compact` is False, as the sat-sharded
+    mesh path asks; epochs padded to `pad_epochs`); the window table
+    `vpack_rs` (C, 160, 11904) int8 is cached on the device in
+    `code_cache` while the channel->PRN map, the layout and the table
+    width hold.  12-grid CBOC tables add `cboc_ab` (their factorization
+    is checked when the table is built); `apply_gain` adds `chan_gain`.
     nsamples must be a multiple of 8*1300 = 10400."""
-    batch = compact_channels(batch)
+    if compact:
+        batch = compact_channels(batch)
     if pad_epochs is not None and batch.f_code.shape[0] != pad_epochs:
         batch = _pad_batch(batch, pad_epochs)
     if nsamples % (ROWS * P_GRID) != 0:
@@ -313,6 +317,9 @@ def prepare_kp_inputs(
     fc_k = fc * P_GRID
     fc_k = fc_k - np.floor(fc_k)
 
+    # the PRN map tells the layouts apart: a compacted map is 8 slots
+    # long, an uncompacted one MAX_CHAN, and they are equal only when
+    # compacting left the batch as it was
     key = (batch.prn.tobytes(), width)
     if code_cache is not None and code_cache.get("key") == key:
         vpack_rs = code_cache["vpack_rs"]
@@ -354,18 +361,19 @@ def _cos_sin(ang: torch.Tensor) -> tuple:
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
 
 
-def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel -> (B, n_k, 1300) int32 packed
-    I/Q (I in the low 16 bits, Q in the high) on the inputs' device.
+def synth_kp_accum_ref(inputs: dict, n_k: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's f32 emit -> (B, n_k*1300, 2)
+    float32 `LUT_AMPLITUDE * acc`, I then Q, on the inputs' device: the
+    channel-summed accumulator the sat-sharded mesh path all-reduces
+    before truncation (JAX `accum_kp`, `_kernel_v5` emit="f32").
 
-    Follows `_kernel_v5` (galileo_sdr_sim_tpu/ops/synth_kp_pallas.py),
-    emit="i32pack", in its sine-BOC or CBOC (`cboc_ab` in the inputs)
-    branch, with or without per-channel gain (`chan_gain`): the
-    per-(c, p) prologue, then the (K, p) main loop vectorized over
-    (B, K, p), with channels added in ascending order in float32 (never
-    a reduction over the channel axis: its order is the library's choice
-    and lands an ulp off the kernel's sequential adds, which flips
-    trunc() at integer ties)."""
+    Follows `_kernel_v5` (galileo_sdr_sim_tpu/ops/synth_kp_pallas.py)
+    in its sine-BOC or CBOC (`cboc_ab` in the inputs) branch, with or
+    without per-channel gain (`chan_gain`): the per-(c, p) prologue,
+    then the (K, p) main loop vectorized over (B, K, p), with channels
+    added in ascending order in float32 (never a reduction over the
+    channel axis: its order is the library's choice and lands an ulp off
+    the kernel's sequential adds, which flips trunc() at integer ties)."""
     if n_k % ROWS != 0 or n_k // ROWS + 2 > SYM_BITS:
         raise ValueError(f"n_k={n_k}: need a multiple of {ROWS} with n_k/8 + 2 <= 32")
     cp0 = inputs["cp0"]
@@ -479,10 +487,24 @@ def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
             acc_q = v_q if c == 0 else acc_q + v_q
 
         amp = float(LUT_AMPLITUDE)
-        ii = torch.trunc(amp * acc_i).to(torch.int32)
-        qq = torch.trunc(amp * acc_q).to(torch.int32)
-        packed = (ii & 0xFFFF) | (qq << 16)
-        return packed.reshape(B, n_k, P_GRID)
+        iq = torch.stack([amp * acc_i, amp * acc_q], dim=-1)
+        return iq.reshape(B, n_k * P_GRID, 2)
+
+
+def pack_iq(acc: torch.Tensor) -> torch.Tensor:
+    """(B, n_k*1300, 2) float32 I/Q -> (B, n_k, 1300) int32 packed I/Q
+    (I in the low 16 bits, Q in the high): the reference's C truncation
+    toward zero, then the pack of `_kernel_v5` emit="i32pack"."""
+    i16 = torch.trunc(acc).to(torch.int32)
+    packed = (i16[..., 0] & 0xFFFF) | (i16[..., 1] << 16)
+    return packed.reshape(acc.shape[0], -1, P_GRID)
+
+
+def synth_kp_packed_ref(inputs: dict, n_k: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel -> (B, n_k, 1300) int32 packed
+    I/Q on the inputs' device: the trunc-and-pack of exactly the values
+    of `synth_kp_accum_ref` (emit="i32pack")."""
+    return pack_iq(synth_kp_accum_ref(inputs, n_k))
 
 
 def iq16_view(packed: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,23 @@
 """Wrapper of the hand-written CUDA kernel csrc/synth_kp_v5.cu.
 
 It replaces the Pallas TPU kernel `_kernel_v5`
-(galileo_sdr_sim_tpu/ops/synth_kp_pallas.py) in four instantiations,
-chosen by the operands: sine-BOC or CBOC (`cboc_ab` in the inputs),
-without or with per-channel gain (`chan_gain`).  Per block of B epochs it
-writes (B, n_k, 1300) int32 packed I/Q; `synth_kp_int16` is the same
-store viewed as (B, 2*n_k*1300) interleaved int16 (the TPU kernel's
-emit="int16").  On an H100 one B=8 block is ~8.3 MB of int32 output
-against ~0.5 GFLOP of float32 work at C = 8 channels, so the kernel is
-bound by FP32 arithmetic, not by memory; see the source for its design.
+(galileo_sdr_sim_tpu/ops/synth_kp_pallas.py) in six instantiations,
+chosen by the operands and the emit: sine-BOC or CBOC (`cboc_ab` in the
+inputs), without or with per-channel gain (`chan_gain`), packed or
+float32.  Per block of B epochs `synth_kp_packed` writes (B, n_k, 1300)
+int32 packed I/Q; `synth_kp_int16` is the same store viewed as
+(B, 2*n_k*1300) interleaved int16 (the TPU kernel's emit="int16");
+`synth_kp_accum` writes the untruncated (B, n_k*1300, 2) float32
+accumulator (emit="f32", sine-BOC or CBOC, no gain) that the sat-sharded
+mesh path all-reduces.  On an H100 one B=8 block is ~8.3 MB of int32
+output (16.6 MB as float32) against ~0.5 GFLOP of float32 work at C = 8
+channels, so the kernel is bound by FP32 arithmetic, not by memory; see
+the source for its design.
 
-`synth_kp_packed` launches the kernel for CUDA tensors and runs the plain
-PyTorch version (ops/synth_kp.synth_kp_packed_ref) for CPU tensors only.
-On a CUDA tensor it launches or raises; it never falls back.
+Each wrapper launches the kernel for CUDA tensors and runs the plain
+PyTorch version (ops/synth_kp.synth_kp_packed_ref, synth_kp_accum_ref)
+for CPU tensors only.  On a CUDA tensor it launches or raises; it never
+falls back.
 """
 
 from __future__ import annotations
@@ -24,18 +29,21 @@ import torch
 from . import _build
 from .synth_kp import (
     GAIN_OPERAND, INT_OPERANDS, P_GRID, ROWS, SCALAR_OPERANDS, SYM_BITS, T_RS, W_RS,
-    iq16_view, synth_kp_packed_ref,
+    iq16_view, synth_kp_accum_ref, synth_kp_packed_ref,
 )
 
 SOURCE = "synth_kp_v5"
 _PALLAS = "galileo_sdr_sim_tpu/ops/synth_kp_pallas.py"
 # instantiation -> file:line of the branch of `_kernel_v5` it replaces:
-# the kernel (sine-BOC), use_gain=True, cboc=True (with and without gain)
+# the kernel (sine-BOC), use_gain=True, cboc=True (with and without gain),
+# emit="f32" (sine-BOC and CBOC)
 REPLACES = {
     "synth_kp_v5": f"{_PALLAS}:74",
     "synth_kp_v5_gain": f"{_PALLAS}:307",
     "synth_kp_v5_cboc": f"{_PALLAS}:294",
     "synth_kp_v5_cboc_gain": f"{_PALLAS}:294",
+    "synth_kp_v5_f32": f"{_PALLAS}:342",
+    "synth_kp_v5_cboc_f32": f"{_PALLAS}:342",
 }
 INT16_REPLACES = f"{_PALLAS}:337"  # emit="int16"
 # FMA contraction of a*b + c (nvcc -fmad): kept on, the build that lies
@@ -60,13 +68,15 @@ def reset_counts() -> None:
     launch_counts.update(dict.fromkeys(REPLACES, 0))
 
 
-def instantiation(inputs: dict) -> str:
-    """The kernel instantiation the operands select."""
+def instantiation(inputs: dict, f32: bool = False) -> str:
+    """The kernel instantiation the operands and the emit select."""
     name = "synth_kp_v5"
     if "cboc_ab" in inputs:
         name += "_cboc"
     if GAIN_OPERAND in inputs:
         name += "_gain"
+    if f32:
+        name += "_f32"
     return name
 
 
@@ -76,7 +86,7 @@ def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
         built = _build.build(SOURCE, (f"-fmad={'true' if fmad else 'false'}",))
         lib = _build.load(built)
         lib.synth_kp_v5_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 14 + [ctypes.c_float] * 2 + [ctypes.c_int] * 7
             + [ctypes.c_void_p]
         )
         lib.synth_kp_v5_launch.restype = ctypes.c_int
@@ -118,12 +128,14 @@ def _check(inputs: dict, n_k: int) -> tuple[int, int]:
     return B, C
 
 
-def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
+def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int, f32: bool = False) -> torch.Tensor:
     """Launch the instantiation the operands select, from `lib`, on the
     current stream of the inputs' device; the output is allocated here,
-    nothing is synchronized."""
+    nothing is synchronized.  `f32`: the float32 store, (B, n_k*1300, 2);
+    else the packed one, (B, n_k, 1300) int32."""
     global launch_count
     B, C = _check(inputs, n_k)
+    name = instantiation(inputs, f32)
     device = inputs["cp0"].device
     k_chunk = min(n_k, K_CHUNK)
     smem = lib.synth_kp_v5_smem_bytes(C, k_chunk)
@@ -132,20 +144,23 @@ def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
     cboc = "cboc_ab" in inputs
     alpha, beta = inputs["cboc_ab"].tolist() if cboc else (0.0, 0.0)
     gain = inputs.get(GAIN_OPERAND)
-    out = torch.empty((B, n_k, P_GRID), dtype=torch.int32, device=device)
+    if f32:
+        out = torch.empty((B, n_k * P_GRID, 2), dtype=torch.float32, device=device)
+    else:
+        out = torch.empty((B, n_k, P_GRID), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        ptrs = [inputs[name].data_ptr() for name in SCALAR_OPERANDS]
+        ptrs = [inputs[k].data_ptr() for k in SCALAR_OPERANDS]
         err = lib.synth_kp_v5_launch(
             *ptrs, None if gain is None else gain.data_ptr(),
             inputs["vpack_rs"].data_ptr(), out.data_ptr(),
-            alpha, beta, int(cboc), B, C, n_k, T_RS, k_chunk, stream,
+            alpha, beta, int(cboc), int(f32), B, C, n_k, T_RS, k_chunk, stream,
         )
     if err != 0:
         msg = lib.synth_kp_v5_error_string(err).decode()
         raise RuntimeError(f"synth_kp_v5 launch failed: CUDA error {err} ({msg})")
     launch_count += 1
-    launch_counts[instantiation(inputs)] += 1
+    launch_counts[name] += 1
     return out
 
 
@@ -170,3 +185,19 @@ def synth_kp_int16(inputs: dict, n_k: int) -> torch.Tensor:
     if out.device.type == "cuda":
         int16_launch_count += 1
     return out
+
+
+def synth_kp_accum(inputs: dict, n_k: int) -> torch.Tensor:
+    """(B, n_k*1300, 2) float32 `LUT_AMPLITUDE * acc` of the prepared
+    operands on their device (emit="f32"): the CUDA kernel on a GPU, the
+    plain PyTorch version on the CPU.  Sine-BOC or CBOC; the f32 emit
+    takes no per-channel gain."""
+    if GAIN_OPERAND in inputs:
+        raise ValueError("the f32 emit has no per-channel gain instantiation")
+    device = inputs["cp0"].device
+    if device.type == "cpu":
+        return synth_kp_accum_ref(inputs, n_k)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    lib, _ = library()
+    return _launch(lib, inputs, n_k, f32=True)

@@ -7,6 +7,8 @@ identical float32 operands.
 
 from __future__ import annotations
 
+import subprocess
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -18,6 +20,8 @@ from galileo_sdr_sim_tpu.scenario import ScenarioEngine
 from galileo_sdr_sim_tpu_torch import harness
 
 NAV = Path(__file__).resolve().parent / "data" / "obs_fixture_nav.rnx"
+DIST_WORKER = Path(__file__).resolve().parent / "_torch_dist_worker.py"
+RANKS_TIMEOUT_S = 300  # a hung rendezvous fails its test, not the whole run
 START = harness.FIXTURE_START
 LLH = harness.FIXTURE_LLH
 CPU = torch.device("cpu")
@@ -44,3 +48,26 @@ def synthetic_pair(B: int, C: int, seed: int, case: str, **variant) -> tuple:
     jax_inputs["vpack"] = jnp.asarray(jkp._pack_codes(codes_b, codes_c))
     jax_inputs["vpack_rs"] = jnp.asarray(jkp._pack_codes_rs(codes_b, codes_c))
     return jax_inputs, harness.synthetic_kp_inputs(B, C, seed, case, CPU, **variant)
+
+
+def run_ranks(mode: str, world: int, outdir: Path) -> None:
+    """Run `world` ranks of tests/_torch_dist_worker.py in `mode`, gloo on
+    the CPU, meeting through a file in `outdir`; raise unless every rank
+    ends well within RANKS_TIMEOUT_S."""
+    (outdir / "static.csv").write_text(",".join(str(v) for v in LLH) + "\n")
+    init = f"file://{outdir / 'rendezvous'}"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(DIST_WORKER), mode, init, str(world), str(rank), str(outdir)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(world)
+    ]
+    try:
+        outs = [p.communicate(timeout=RANKS_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"RANK {rank} OK" not in out:
+            raise RuntimeError(f"rank {rank} of {mode} failed (rc {p.returncode}):\n{out[-3000:]}")

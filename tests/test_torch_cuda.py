@@ -12,10 +12,14 @@ difference within 4 * LUT_AMPLITUDE = 1000), its CBOC instantiations to
 equal its CPU run exactly under lut512.  The band-limit filter on the
 card is held to its CPU run (>= 99.9% identical, every difference
 within 1), and the band-limited stream to its CPU run by the per-sample
-bound of `bandlimit_bar`.  Without a GPU every test skips: a CUDA
-kernel has no CPU mode.
+bound of `bandlimit_bar`.  The f32 emit is held to its plain version by
+the same bars on its truncated values, and its truncation must equal the
+packed store bit for bit (every op before the store is shared).  Without
+a GPU every test skips: a CUDA kernel has no CPU mode.
 """
 
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +39,7 @@ from galileo_sdr_sim_tpu_torch.ops import synth_kp as tkp
 from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
 
 NAV = Path(__file__).resolve().parent / "data" / "obs_fixture_nav.rnx"
+DIST_WORKER = Path(__file__).resolve().parent / "_torch_dist_worker.py"
 CPU = torch.device("cpu")
 N_K = 200  # full 0.1 s epochs
 
@@ -207,3 +212,67 @@ def test_bandlimit_stream_on_the_card(gpu):
     assert bar["ok"], bar
     bar = bandlimit_bar(got, ref, x_g, x_c)
     assert bar["ok"], bar
+
+
+# --- the f32 emit (kernel 2) and the shared-GPU refusal ----------------------
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("cboc", [False, True])
+def test_f32_emit_matches_plain_version(gpu, cboc, C, case):
+    inputs = synthetic_kp_inputs(8, C, 13, case, gpu, cboc=cboc)
+    name = "synth_kp_v5_cboc_f32" if cboc else "synth_kp_v5_f32"
+    before = synth_kp_cuda.launch_counts[name]
+    got = synth_kp_cuda.synth_kp_accum(inputs, N_K)
+    assert synth_kp_cuda.launch_counts[name] == before + 1
+    ref = tkp.synth_kp_accum_ref(inputs, N_K)
+    torch.cuda.synchronize()
+    assert got.device == gpu and got.dtype == torch.float32
+    assert tuple(got.shape) == (8, N_K * 1300, 2)
+    bar = (cboc_bar if cboc else engine_bar)(tkp.pack_iq(got), tkp.pack_iq(ref))
+    assert bar["ok"], bar
+    assert torch.equal(tkp.pack_iq(got), synth_kp_cuda.synth_kp_packed(inputs, N_K))
+
+
+@pytest.mark.parametrize("cboc", [False, True])
+def test_f32_emit_on_an_uncompacted_fixture_block(gpu, cboc):
+    """All 16 channel slots, as the sat-sharded mesh prepares them."""
+    model = E1_CBOC if cboc else E1_OS
+    batch = next(fixture_engine(NAV, 1.0, model).batches(8))
+    inputs = tkp.prepare_kp_inputs(batch, N_K * 1300, pad_epochs=8, device=gpu, compact=False)
+    assert inputs["cp0"].shape == (8, 16)
+    got = synth_kp_cuda.synth_kp_accum(inputs, N_K)
+    bar = (cboc_bar if cboc else engine_bar)(tkp.pack_iq(got), tkp.pack_iq(tkp.synth_kp_accum_ref(inputs, N_K)))
+    assert bar["ok"], bar
+    assert torch.equal(tkp.pack_iq(got), synth_kp_cuda.synth_kp_packed(inputs, N_K))
+
+
+def test_f32_emit_refuses_gain(gpu):
+    inputs = synthetic_kp_inputs(8, 8, 13, "random", gpu, gain=True)
+    before = synth_kp_cuda.launch_count
+    with pytest.raises(ValueError, match="gain"):
+        synth_kp_cuda.synth_kp_accum(inputs, N_K)
+    assert synth_kp_cuda.launch_count == before
+
+
+def test_nccl_refuses_two_ranks_on_one_gpu(gpu, tmp_path):
+    """Two NCCL ranks placed on cuda:0: `make_mesh` raises a clear error
+    (checked over a gloo group, before any NCCL collective) instead of
+    switching backend or hanging."""
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(DIST_WORKER), "nccl_shared", init, "2", str(rank), str(tmp_path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK {rank} OK" in out, out[-3000:]
+        assert "REFUSED" in out and "NCCL cannot run two ranks on one GPU" in out, out[-3000:]

@@ -92,7 +92,9 @@ def test_no_module_names_jax():
                 assert words[1].split(".")[0] not in ("jax", "jaxlib"), (path, line)
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py"])
+@pytest.mark.parametrize(
+    "path", ["chip_smoke.py", "tests/test_torch_cuda.py", "tests/_torch_dist_worker.py"]
+)
 def test_gpu_side_file_imports_no_jax(path):
     """What runs on the GPU machine, which has no JAX: every module the
     file imports, at top level or inside a function, imports with `jax`

@@ -281,8 +281,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     assert cli.main([]) == 1  # no nav file
     assert cli.main(base) == 1  # USRP sink (no -U)
     assert cli.main(base + ["-U", "1", "--trace-dir", str(tmp_path)]) == 1
-    monkeypatch.setenv("GALILEO_COORDINATOR", "localhost:1234")
-    assert cli.main(base + ["-U", "1"]) == 1
 
 
 def test_cuda_requested_without_gpu_raises(tmp_path):
