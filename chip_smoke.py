@@ -2,13 +2,18 @@
 
     python3 chip_smoke.py
 
+JAX and the JAX package `galileo_sdr_sim_tpu` are blocked from import
+before the port is imported: the port stands alone.
+
 Phases, each printed on its own lines; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit); a CUDA device is required;
-2. build of the CUDA kernel csrc/synth_kp_v5.cu (its six
+2. build, in parallel, of the CUDA kernel csrc/synth_kp_v5.cu (its six
    instantiations: sine-BOC or CBOC, without or with per-channel gain,
-   and the f32 emit of sine-BOC and CBOC) from this checkout;
+   and the f32 emit of sine-BOC and CBOC, all in the TPU kernel's
+   K-vectorised main loop) and of csrc/gather_probe.cu, from this
+   checkout;
 3. each instantiation against its plain PyTorch version on the card, at
-   B=8 epochs x 200 rows x 1300 samples, C=8 and C=16 channels, on
+   B=8 epochs x 200 rows x 1300 samples, C = 2, 8 and 16 channels, on
    seeded synthetic operands (adversarial cases included) and on one
    block of the fixture scene (its CBOC version for the CBOC
    instantiations), held to the engine bar (>= 99.9% of int16 values
@@ -28,7 +33,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    stay at the noise floor (metric 8; 6, the level of the JAX package's
    band-limited acquisition test, where the run weights channels by
    their gain, whose weakest visible one sits at 0.43 of the strongest,
-   or is band-limited);
+   or is band-limited); then the gather probe's `main()` (seven
+   probes, each CORRECT);
 6. the multi-process paths: the CLI in distributed mode as one NCCL
    process (3 s; only the f32 instantiation runs, once a block; the file
    is byte-identical to the default run's and acquires); the sharded
@@ -41,15 +47,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    first acquired;
 7. timings with CUDA events (kernel vs plain version for each
    instantiation and the f32 emit, median of 25 samples of 10
-   back-to-back calls, after warm-up; the band-limit filter per block;
+   back-to-back calls queued behind a sleep kernel, after warm-up, and
+   each wrapper's host time a call; the gather kernel beside its plain
+   version and `torch.take_along_dim` on the seven probe shapes; the
+   band-limit filter per block;
    the all-reduce of one block's float32 partial, NCCL in one rank and
    gloo in two), the end-to-end file-sink rate of a 30 s default run and
    of a 10 s `--bandlimit` run (3 runs each), of a 10 s one-process
    distributed run (3 runs) and of a 10 s two-rank run, each with its
    stage split, and the device time of a 5 s `--bandlimit` run under
    torch.profiler.
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.
+The JSON summary of the kernels (with each one's bound: the larger of
+its float32 operations over the card's FP32 peak and its bytes over the
+HBM rate, see `kp_bound` and `gather_bytes`) and the card's name and power limit are the
+two lines before the last; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -78,6 +89,9 @@ MIN_METRIC = 8.0
 # reads ~7.9) and band-limited runs: tests/test_bandlimit.py's level
 MIN_METRIC_WEAK = 6.0
 E2E_RUNS = 3  # scenario runs through the CLI's build_run
+# ~5 ms of an H100's clock: longer than the host takes to queue ten calls
+# of a kernel wrapper (see median_ms)
+HOLD_CYCLES = 10_000_000
 RANKS_TIMEOUT_S = 600  # the two-rank phase, both ranks together
 # instantiation -> the operand variant that selects it
 VARIANTS = {
@@ -86,6 +100,23 @@ VARIANTS = {
     "synth_kp_v5_gain": dict(gain=True),
     "synth_kp_v5_cboc_gain": dict(cboc=True, gain=True),
 }
+# channel counts of the synthetic checks: tools/probe_vec_kt.py's, from
+# few channels to all 16 slots
+KP_CS = (2, 8, 16)
+# NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): FP32 outside the
+# tensor cores, and HBM3
+FP32_PEAK = 67e12  # FLOP/s
+HBM_RATE = 3.35e12  # bytes/s
+# float32 operations of the kp kernel, counted from the main loop of
+# csrc/synth_kp_v5.cu (an FMA counts 2; integer bit ops and int8 ->
+# float conversions are not counted, nor are the per-(c, p) prologue and
+# the K-factor table, under 2% of the rest): per (channel, sample) 29 --
+# t_kp 2, floor 1, chip_b and chip_c 6, bsel 3, d_val and s_val 4, the
+# mix 3, the carrier product 6, the two accumulations 4 -- plus 5 under
+# CBOC (frac, j6 and the two weight products) and 1 with gain; per
+# (channel, kap, p) 26 (six +-1 symbol selects 12; d_lo, d_df, s_lo,
+# s_df 14)
+KP_OPS_SAMPLE, KP_OPS_CBOC, KP_OPS_GAIN, KP_OPS_KAP = 29, 5, 1, 26
 
 
 def check(ok: bool, what: str) -> None:
@@ -110,7 +141,9 @@ def free_port() -> int:
 def psum_bar(got: np.ndarray, ref: np.ndarray) -> dict:
     """Sharded against single-process int16 output: the all-reduce
     reassociates the float32 channel sum (JAX package's PSUM_* bounds)."""
-    from galileo_sdr_sim_tpu.parallel.distributed import PSUM_MAX_LSB, PSUM_SAMPLE_IDENTITY_BOUND
+    from galileo_sdr_sim_tpu_torch.parallel.distributed import (
+        PSUM_MAX_LSB, PSUM_SAMPLE_IDENTITY_BOUND,
+    )
 
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
     match, max_err = float((diff == 0).mean()), int(diff.max())
@@ -119,10 +152,67 @@ def psum_bar(got: np.ndarray, ref: np.ndarray) -> dict:
             and max_err <= PSUM_MAX_LSB}
 
 
+def bound(ops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the least time of the work on the card, the
+    larger of its operations over the FP32 peak and its bytes over the
+    HBM rate."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kp_bound(inputs: dict, n_k: int, f32: bool = False) -> tuple:
+    """`bound` of one kp kernel call on these operands: KP_OPS_* float32
+    operations; each (B, C) operand read once, the 32 code-table taps each
+    (b, c, p) selects (what the table lookups of this call need), and the
+    output written once (int32 packed, or float2 under f32)."""
+    from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
+        GAIN_OPERAND, P_GRID, SCALAR_OPERANDS, W_PACK,
+    )
+
+    B, C = inputs["cp0"].shape
+    per_sample = (KP_OPS_SAMPLE + KP_OPS_CBOC * ("cboc_ab" in inputs)
+                  + KP_OPS_GAIN * (GAIN_OPERAND in inputs))
+    ops = B * C * n_k * P_GRID * per_sample + B * C * (n_k // 8) * P_GRID * KP_OPS_KAP
+    operands = [k for k in (*SCALAR_OPERANDS, GAIN_OPERAND) if k in inputs]
+    nbytes = (sum(inputs[k].numel() * inputs[k].element_size() for k in operands)
+              + B * C * P_GRID * W_PACK + B * n_k * P_GRID * (8 if f32 else 4))
+    return bound(ops, nbytes)
+
+
+def gather_bytes(idx: torch.Tensor, axis: int) -> int:
+    """Bytes one take_along_axis call must move on these indices: each
+    table element the indices reach read once (counted on this run's
+    indices), the int32 indices read and the int32 output written."""
+    rows, cols = idx.shape
+    i = idx.long()
+    if axis == 0:
+        flat = i * cols + torch.arange(cols, device=idx.device)
+    else:
+        flat = torch.arange(rows, device=idx.device)[:, None] * cols + i
+    return (int(torch.unique(flat).numel()) + 2 * idx.numel()) * 4
+
+
+def host_ms(fn, per: int = 10) -> float:
+    """Host time of one call to queue `fn` (no synchronize inside), the
+    mean over `per` calls: what back-to-back calls cost the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(per):
+        fn()
+    t = (time.perf_counter() - t0) / per * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
     """Median over n samples of the device time of one call, each sample
-    `per` back-to-back calls between two CUDA events (so the host's
-    launch overhead hides behind the queued work), divided by `per`."""
+    `per` back-to-back calls between two CUDA events, divided by `per`.
+    A sleep kernel of HOLD_CYCLES runs ahead of the first event, so the
+    host queues all `per` calls before the card reaches them: a call
+    whose device time is below its host-side launch cost (a few tens of
+    microseconds through a wrapper) is then timed on the card, not on
+    the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -130,6 +220,7 @@ def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
     for _ in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         e0.record()
         for _ in range(per):
             fn()
@@ -151,33 +242,43 @@ def main() -> int:
 
     import torch.distributed as dist
 
-    from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
-    from galileo_sdr_sim_tpu.models.e1 import E1_OS
-    from galileo_sdr_sim_tpu.profiling import Timer
-    from galileo_sdr_sim_tpu.rx_track import acquire, iq_to_complex
+    from galileo_sdr_sim_tpu_torch._block_reference import install
+
+    install()  # JAX and the JAX package, before the rest of the port loads
     from galileo_sdr_sim_tpu_torch import cli
     from galileo_sdr_sim_tpu_torch.harness import (
         CASES, FIXTURE_LLH, FIXTURE_START, cboc_bar, engine_bar, fixture_engine,
         synthetic_kp_inputs,
     )
-    from galileo_sdr_sim_tpu_torch.ops import bandlimit, synth_kp_cuda
+    from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
+    from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
+    from galileo_sdr_sim_tpu_torch.ops import bandlimit, gather_probe, synth_kp_cuda
     from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
         pack_iq, packed_to_iq16, prepare_kp_inputs, synth_kp_accum_ref, synth_kp_int16_ref,
         synth_kp_packed_ref,
     )
     from galileo_sdr_sim_tpu_torch.parallel import distributed as D
     from galileo_sdr_sim_tpu_torch.parallel import mesh as M
+    from galileo_sdr_sim_tpu_torch.profiling import Timer
+    from galileo_sdr_sim_tpu_torch.rx_track import acquire, iq_to_complex
 
-    # --- 2. build --------------------------------------------------------
-    _, built = synth_kp_cuda.library()
-    print(f"build: {built.path.name} in {built.seconds:.2f} s (fmad={synth_kp_cuda.FMAD})")
+    # --- 2. build, one nvcc a source, all started together ----------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(synth_kp_cuda.library), pool.submit(gather_probe.library)]
+        (_, built), (_, gbuilt) = (f.result() for f in builds)
+    print(f"build: {built.path.name} in {built.seconds:.2f} s (fmad={synth_kp_cuda.FMAD}), "
+          f"{gbuilt.path.name} in {gbuilt.seconds:.2f} s, {time.perf_counter() - t0:.2f} s wall")
     print(built.log.strip())
+    print(gbuilt.log.strip())
 
     # --- 3. each instantiation vs its plain version on the card ----------
     worst = dict.fromkeys(VARIANTS, 0)
     for name, variant in VARIANTS.items():
         bar_fn = cboc_bar if "cboc" in variant else engine_bar
-        for C in (8, 16):
+        for C in KP_CS:
             for case in CASES:
                 inputs = synthetic_kp_inputs(B, C, 100 + C, case, dev, **variant)
                 check(synth_kp_cuda.instantiation(inputs) == name, f"{name}: operands select "
@@ -222,7 +323,7 @@ def main() -> int:
         model = E1_CBOC if cboc else E1_OS
         batch = next(fixture_engine(NAV, 1.0, model).batches(B))
         cases = [(C, case, synthetic_kp_inputs(B, C, 100 + C, case, dev, cboc=cboc))
-                 for C in (8, 16) for case in CASES]
+                 for C in KP_CS for case in CASES]
         cases.append((16, "fixture block uncompacted",
                       prepare_kp_inputs(batch, NSAMP, pad_epochs=B, device=dev, compact=False)))
         worst[name] = 0
@@ -318,6 +419,14 @@ def main() -> int:
         check(bl["int16"] == bl["counts"]["synth_kp_v5_cboc_gain"],
               "the band-limited run did not go through the int16 view")
         launches_int16 = bl["int16"]
+
+        # the gather probe's main(): seven probes, each CORRECT
+        gather_probe.launch_count = 0
+        rc = gather_probe.main([])
+        launches["gather_probe"] = gather_probe.launch_count
+        print(f"main path gather probe: rc={rc} launches={launches['gather_probe']}")
+        check(rc == 0, "the gather probe found a wrong result")
+        check(launches["gather_probe"] == len(gather_probe.PROBES), "gather probe launches")
 
         # --- 6. the multi-process paths ------------------------------------
         # the CLI in distributed mode, one NCCL process: every block through
@@ -424,18 +533,21 @@ def main() -> int:
             print(card_["stages"])
 
         # --- 7. timings --------------------------------------------------
-        times = {}
-        for C in (8, 16):
+        times, timing_inputs = {}, {}
+        for C in KP_CS:
             inputs = synthetic_kp_inputs(B, C, 100 + C, "random", dev)
             plain = median_ms(lambda: synth_kp_packed_ref(inputs, N_K))
             kern = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
             times[("synth_kp_v5", C)] = (kern, plain)
             print(f"time synth_kp_v5 B={B} n_k={N_K} C={C}: kernel {kern:.4f} ms, "
                   f"plain {plain:.4f} ms ({gpu})")
+            if C == 8:
+                timing_inputs["synth_kp_v5"] = (inputs, False)
         for name, variant in VARIANTS.items():
             if not variant:
                 continue
             inputs = synthetic_kp_inputs(B, 8, 108, "random", dev, **variant)
+            timing_inputs[name] = (inputs, False)
             plain = median_ms(lambda: synth_kp_packed_ref(inputs, N_K))
             kern = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
             times[(name, 8)] = (kern, plain)
@@ -447,12 +559,38 @@ def main() -> int:
               f"plain {plain16:.4f} ms ({gpu})")
         for name, cboc in F32.items():
             inputs = synthetic_kp_inputs(B, 8, 108, "random", dev, cboc=cboc)
+            timing_inputs[name] = (inputs, True)
             plain = median_ms(lambda: synth_kp_accum_ref(inputs, N_K))
             kern = median_ms(lambda: synth_kp_cuda.synth_kp_accum(inputs, N_K))
             packed = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
             times[(name, 8)] = (kern, plain)
             print(f"time {name} B={B} n_k={N_K} C=8: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
                   f"packed store {packed:.4f} ms ({gpu})")
+        # what one call costs the host (ctypes, operand checks, the output
+        # allocation), beside the device times above
+        for name, (inputs, f32) in timing_inputs.items():
+            wrapper = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
+            print(f"time {name}: the wrapper's host time {host_ms(lambda: wrapper(inputs, N_K)):.4f} "
+                  f"ms a call ({gpu})")
+        # the gather kernel on the probe's seven shapes, beside its plain
+        # version (int32 indices, widened) and torch.take_along_dim (int64
+        # indices made beforehand), timed as a yardstick only
+        gather = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        gen = torch.Generator().manual_seed(0)
+        for shape, maxidx, axis in gather_probe.PROBES:
+            tab, idx = (t.to(dev) for t in gather_probe.probe_inputs(shape, maxidx, gen))
+            idx64 = idx.long()
+            t_g = {
+                "ms": median_ms(lambda: gather_probe.take_along_axis(tab, idx, axis)),
+                "plain_ms": median_ms(lambda: gather_probe.take_along_axis_ref(tab, idx, axis)),
+                "library_ms": median_ms(lambda: torch.take_along_dim(tab, idx64, dim=axis)),
+                "bound_ms": bound(0, gather_bytes(idx, axis))[0],
+            }
+            for key, val in t_g.items():
+                gather[key] += val
+            print(f"time gather {shape} axis={axis}: kernel {t_g['ms']:.5f} ms, plain "
+                  f"{t_g['plain_ms']:.5f} ms, torch.take_along_dim {t_g['library_ms']:.5f} ms, "
+                  f"bound {t_g['bound_ms']:.6f} ms ({gpu})")
         rng = np.random.default_rng(0)
         stack = torch.from_numpy(
             rng.integers(-2500, 2500, (bandlimit.OS, B, 2 * 260000)).astype(np.int16)).to(dev)
@@ -517,29 +655,23 @@ def main() -> int:
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
             print(f"  {us / 1e3:9.3f} ms  {count:5d} x  {key[:100]}")
 
+    kp_source = "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu"
+
+    def entry(name, source, replaces, n_launch, err, ms, plain_ms, bound_, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": library_ms}
+
     entries = []
     for name in (*VARIANTS, *F32):
-        kern, plain = times[(name, 8)]
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu",
-            "replaces": synth_kp_cuda.REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": worst[name],
-            "ms": kern,
-            "plain_ms": plain,
-        })
-    entries.append({
-        "name": "synth_kp_v5_int16",
-        "route": "cuda",
-        "source": "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu",
-        "replaces": synth_kp_cuda.INT16_REPLACES,
-        "launches": launches_int16,
-        "max_abs_err": worst_int16,
-        "ms": kern16,
-        "plain_ms": plain16,
-    })
+        inputs, f32 = timing_inputs[name]
+        entries.append(entry(name, kp_source, synth_kp_cuda.REPLACES[name], launches[name],
+                             worst[name], *times[(name, 8)], kp_bound(inputs, N_K, f32)))
+    entries.append(entry("synth_kp_v5_int16", kp_source, synth_kp_cuda.INT16_REPLACES,
+                         launches_int16, worst_int16, kern16, plain16, kp_bound(inputs16, N_K)))
+    entries.append(entry("gather_probe", "galileo_sdr_sim_tpu_torch/csrc/gather_probe.cu",
+                         gather_probe.REPLACES, launches["gather_probe"], 0, gather["ms"],
+                         gather["plain_ms"], (gather["bound_ms"], "bytes"), gather["library_ms"]))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched by its main path")
     print(json.dumps({"kernels": entries}))

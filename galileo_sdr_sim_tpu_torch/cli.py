@@ -3,8 +3,9 @@
 
     python -m galileo_sdr_sim_tpu_torch.cli -e NAV -U 1 -b 1 -o out.ishort
 
-Reuses the JAX package's JAX-free parser and helpers and follows its
-`cli.main` for the file sink: `--engine auto|kp_pallas|kp` runs the
+Its parser and helpers are a copy of the JAX package's
+(galileo_sdr_sim_tpu/cli.py:47-208: the same flags and defaults), and it
+follows that package's `cli.main` for the file sink: `--engine auto|kp_pallas|kp` runs the
 factorized engine (the CUDA kernel on a GPU, its plain PyTorch version on
 the CPU) and `--engine direct` the direct engine; `--model cboc`,
 `--apply-gain` and `--bandlimit` (which implies `--model cboc`) run as
@@ -19,6 +20,7 @@ ROADMAP item.
 
 from __future__ import annotations
 
+import argparse
 import os
 import signal
 import sys
@@ -27,25 +29,181 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from galileo_sdr_sim_tpu.cli import (
-    _glue_negative_values,
-    _parse_time,
-    _status_printer,
-    build_parser,
-    load_user_motion,
-)
-from galileo_sdr_sim_tpu.gnss_time import DateTime, date2gal
-from galileo_sdr_sim_tpu.parallel.distributed import ENV_COORD
-from galileo_sdr_sim_tpu.rinex import read_rinex_v3
-from galileo_sdr_sim_tpu.scenario import PositionProvider, ScenarioEngine, scenario_start_time
-
+from .constants import R2D
 from .device import resolve_device
+from .gnss_time import DateTime, GalTime, date2gal
+from .parallel.distributed import ENV_COORD
+from .rinex import read_rinex_v3
+from .scenario import PositionProvider, ScenarioEngine, scenario_start_time
+
+
+def _parse_time(s: str) -> GalTime:
+    import re
+
+    m = re.match(r"(\d+)/(\d+)/(\d+),(\d+):(\d+):([\d.]+)", s)
+    if not m:
+        raise SystemExit("ERROR: Invalid date and time.")
+    y, mo, d, hh, mm = (int(m.group(i)) for i in range(1, 6))
+    sec = float(m.group(6))
+    if (
+        y <= 1980 or not 1 <= mo <= 12 or not 1 <= d <= 31
+        or not 0 <= hh <= 23 or not 0 <= mm <= 59 or not 0 <= sec < 60
+    ):
+        raise SystemExit("ERROR: Invalid date and time.")
+    return date2gal(DateTime(y, mo, d, hh, mm, float(int(sec))))
+
+
+def load_user_motion(path: str) -> np.ndarray:
+    """User-motion file -> (N, 3) llh degrees at 10 Hz."""
+    from .geodesy import xyz2llh
+
+    rows = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.replace(",", " ").split()]
+            rows.append(vals)
+    arr = np.asarray(rows, dtype=np.float64)
+    if arr.shape[1] == 3:  # lat, lon, hgt (deg)
+        return arr
+    if arr.shape[1] == 4:  # time, x, y, z ECEF (gps-sdr-sim style)
+        llh = xyz2llh(arr[:, 1:4])
+        return np.stack([llh[:, 0] * R2D, llh[:, 1] * R2D, llh[:, 2]], axis=-1)
+    raise SystemExit(f"ERROR: unrecognized user-motion format in {path}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="galileo-sdr-torch",
+        description="Galileo E1 OS baseband signal simulator (PyTorch/CUDA port)",
+    )
+    p.add_argument("-e", dest="navfile", metavar="RINEX", help="RINEX nav file")
+    p.add_argument("-n", dest="tvfile", metavar="TV", help="(vestigial) test-vector file")
+    p.add_argument("-o", dest="outfile", metavar="FILE", default="galileosim.ishort")
+    p.add_argument("-l", dest="llh", metavar="LAT,LON,HGT", default="42.3601,-71.0589,2")
+    p.add_argument("-t", dest="start", metavar="Y/M/D,h:m:s")
+    p.add_argument("-T", dest="overwrite", metavar="Y/M/D,h:m:s|now")
+    p.add_argument("-d", dest="duration", type=float, default=300.0)
+    p.add_argument("-G", dest="gain", type=float, default=30.0)
+    p.add_argument("-a", dest="device_args", default="")
+    p.add_argument("-p", dest="udp_port", type=int, default=5671)
+    p.add_argument("-i", dest="interactive", action="store_true")
+    p.add_argument("-I", dest="iono_disable", action="store_true")
+    p.add_argument("-U", dest="disable_usrp", nargs="?", const="1", default=None)
+    p.add_argument("-b", dest="disable_bitstream", nargs="?", const="1", default=None)
+    p.add_argument("-v", dest="verbose", action="store_true")
+    p.add_argument("-u", dest="umfile", metavar="FILE", help="user-motion file")
+    p.add_argument("--mode", choices=("float", "lut512"), default="float")
+    p.add_argument("--model", choices=("e1", "cboc"), default="e1",
+                   help="signal model: sine-BOC(1,1) E1 OS (reference "
+                        "parity, default) or full CBOC(6,1,1/11) "
+                        "(models/cboc.py; same fused-kernel rate)")
+    p.add_argument("--engine", choices=("auto", "kp_pallas", "kp", "direct"),
+                   default="auto",
+                   help="synthesis engine: 'auto', 'kp_pallas' and 'kp' = "
+                        "the factorized (K,p) engine (the CUDA kernel on a "
+                        "GPU, its plain PyTorch version on the CPU); "
+                        "'direct' = the direct reference formulation")
+    p.add_argument("--block-epochs", type=int, default=None,
+                   help="epochs per device call (default 8; 1 when -i for "
+                        "low-latency live position updates)")
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   help="device blocks in flight ahead of the sink "
+                        "(default 1: single-thread prep-then-drain, which "
+                        "measures fastest and keeps the one-epoch live-"
+                        "position latency; >=2 adds a producer thread)")
+    p.add_argument("--checkpoint", metavar="FILE",
+                   help="snapshot scenario state every 30 s; resumes "
+                        "automatically if the file exists")
+    p.add_argument("--dummy-almanac", action="store_true",
+                   help="emit dummy word 63 in the almanac slots (word "
+                        "types 7-10) like the reference instead of real "
+                        "almanac data derived from the ephemerides")
+    p.add_argument("--bandlimit", action="store_true",
+                   help="emit the band-limited CBOC stream (synthesize "
+                        "at 12x via polyphase fused-kernel calls, "
+                        "low-pass at 1.3 MHz, decimate — what a band-"
+                        "limited front end digitizes; implies --model "
+                        "cboc; ops/bandlimit.py)")
+    p.add_argument("--apply-gain", action="store_true",
+                   help="apply per-channel path-loss/antenna gain to the mix "
+                        "(the reference computes but does not apply it)")
+    p.add_argument("--relay-timeout", type=float, default=None, metavar="SEC",
+                   help="in bit-relay mode, fall back to ephemeris-"
+                        "synthesized nav messages if no bits arrive on UDP "
+                        "7531 within SEC seconds (default: wait forever, "
+                        "like the reference, galileo-sdr.cpp:389-416)")
+    p.add_argument("--noise-cn0", type=float, default=None, metavar="DBHZ",
+                   help="add calibrated AWGN to the output for a target "
+                        "per-component C/N0 [dB-Hz] (noise.py; emulates "
+                        "the over-the-air channel of the reference's "
+                        "hardware-receiver validation)")
+    p.add_argument("--trace-dir", metavar="DIR",
+                   help="device trace of the run (not ported yet: the "
+                        "run stops with an error)")
+    p.add_argument("--native-fifo", action="store_true",
+                   help="route the file sink through the native C++ ring "
+                        "buffer + consumer thread (always on for USRP "
+                        "output, mirroring the reference's FIFO + tx_task)")
+    return p
+
+
+def _status_printer(engine: ScenarioEngine, g0: GalTime):
+    def cb(batch, stats):
+        rows = []
+        for i, ch in enumerate(engine.bank.channels):
+            if ch.prn <= 0:
+                continue
+            rows.append(
+                f"{i:3d}{ch.prn:6d}{ch.azel[0]*R2D:14.6f}{ch.azel[1]*R2D:17.6f}"
+                f"{ch.f_carr:21.6f}{ch.code_phase:18.6f}{engine.grx.sec:18.6f}"
+                f"{ch.rho0_range:18.6f}{ch.eph_index:5d}"
+            )
+        sys.stderr.write("\x1b[2J\x1b[H")
+        sys.stderr.write(
+            f" Elapsed {engine.grx - g0:6.1f} s | {stats.realtime_factor:8.1f}x realtime\n"
+        )
+        sys.stderr.write(
+            f"{'CH':>3}{'PRN':>6}{'Azimuth':>14}{'Elevation':>17}"
+            f"{'Doppler [Hz]':>21}{'Code phase':>18}{'rx_time':>18}"
+            f"{'Pseudorange':>18}{'Eph':>5}\n"
+        )
+        sys.stderr.write("\n".join(rows) + "\n")
+
+    return cb
+
+
+# short options that take a value and may legitimately receive one
+# starting with '-' (negative latitude/longitude): getopt accepts
+# "-l -6,51,100" (the README's canonical example, README.md:49-60) but
+# argparse would parse "-6,51,100" as an option — glue the pair together
+# into argparse's attached short-option form.
+_VALUE_OPTS = {"-l", "-t", "-T", "-d", "-G"}
+
+
+def _glue_negative_values(argv: list[str]) -> list[str]:
+    out, i = [], 0
+    while i < len(argv):
+        tok = argv[i]
+        if (
+            tok in _VALUE_OPTS
+            and i + 1 < len(argv)
+            and argv[i + 1][:1] == "-"
+            and len(argv[i + 1]) > 1
+            and argv[i + 1][1].isdigit()
+        ):
+            out.append(tok + argv[i + 1])
+            i += 2
+        else:
+            out.append(tok)
+            i += 1
+    return out
 
 
 def build_torch_parser():
     p = build_parser()
-    p.prog = "galileo-sdr-torch"
-    p.description = "Galileo E1 OS baseband signal simulator (PyTorch/CUDA port)"
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; fails without a GPU) "
                         "or 'cpu' (the plain PyTorch engines)")
@@ -109,7 +267,7 @@ def build_engine(args) -> tuple:
     servers = None
     if args.interactive or args.umfile is None:
         # the reference always spawns the locations thread (galileo-sdr.cpp:185)
-        from galileo_sdr_sim_tpu.io.udp import UdpServers
+        from .io.udp import UdpServers
 
         servers = UdpServers(llh0).start()
         position = PositionProvider(live=lambda: servers.state.llh)
@@ -124,9 +282,9 @@ def build_engine(args) -> tuple:
         if args.bandlimit:
             args.model = "cboc"
         if args.model == "cboc":
-            from galileo_sdr_sim_tpu.models.cboc import E1_CBOC as signal_model
+            from .models.cboc import E1_CBOC as signal_model
         else:
-            from galileo_sdr_sim_tpu.models.e1 import E1_OS as signal_model
+            from .models.e1 import E1_OS as signal_model
         engine = ScenarioEngine(nav, position, g0, args.duration,
                                 verbose=args.verbose, bit_source=bit_source,
                                 model=signal_model)
@@ -143,19 +301,19 @@ def build_run(args) -> Run:
     device = resolve_device(args.device)
     engine, servers = build_engine(args)
     try:
-        from galileo_sdr_sim_tpu.io.sinks import FileSink
+        from .io.sinks import FileSink
 
         from .io.stream import StreamingSynthesizer
 
         if args.native_fifo:
-            from galileo_sdr_sim_tpu.io.native_fifo import NativeFifoSink
+            from .io.native_fifo import NativeFifoSink
 
             sink = NativeFifoSink(args.outfile)
         else:
             sink = FileSink(args.outfile)
         try:
             if args.noise_cn0 is not None:
-                from galileo_sdr_sim_tpu.noise import AwgnSink
+                from .noise import AwgnSink
 
                 sink = AwgnSink(sink, args.noise_cn0)
             status_cb = _status_printer(engine, engine.g0) if args.verbose else None

@@ -13,9 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from galileo_sdr_sim_tpu.scenario import EpochBatch
-
 from .ops.synth_kp import kernel_operands, operands_to_device
+from .scenario import EpochBatch
 
 
 def kp_inputs_from_jax(np_inputs: dict, device: torch.device) -> dict:

@@ -3,9 +3,11 @@
 // Replaces the Pallas TPU kernel `_kernel_v5` of
 // galileo_sdr_sim_tpu/ops/synth_kp_pallas.py in six instantiations of
 // `synth_kp_v5_kernel<CBOC, GAIN, F32>`: sine-BOC or CBOC(6,1,1/11)
-// (`cboc=True`, :171-175 and :294-304), without or with per-channel
-// gain (`use_gain=True`, :307-311), and, without gain, the f32 emit
-// (`emit="f32"`, :342-344).  Same math and op order: the
+// (`cboc=True`, :171-175 and :294-304), without or with per-channel gain
+// (`use_gain=True`, :307-311), and, without gain, the f32 emit
+// (`emit="f32"`, :342-344).  Its main loop is the TPU kernel's
+// K-vectorised one (`vec_kt=True`, :180-259), which gives the values of
+// the default per-row loop bit for bit.  Same math and op order: the
 // per-(channel, p) prologue of _kernel_v5 (chip geometry, 5-tap select
 // from the pre-resampled window table, code-period carry planes, carrier
 // p-factor), then for every row K the sum over channels, in ascending
@@ -28,10 +30,26 @@
 // against 8.3 MB, a few microseconds of HBM time.
 //
 // What bounds it on an H100: per B=8 block it writes 8 x 200 x 1300 int32
-// = 8.3 MB and does about 0.5 GFLOP of float32 work at C = 8 channels
-// (~25 flops per channel-sample), i.e. ~2.5 us of HBM traffic against
-// ~8 us of FP32 arithmetic at the card's 67 TFLOP/s.  It is compute-bound, and
-// at B=8 it launches only 8 x 11 x 5 = 440 blocks of 128 threads.
+// = 8.3 MB and does about 0.54 GFLOP of float32 work at C = 8 channels
+// (~32 flops per channel-sample: 29 a sample plus 26 a group of eight
+// rows), i.e. ~2.5 us of HBM traffic against ~8 us of FP32 arithmetic
+// at the card's 67 TFLOP/s.  It is compute-bound, and at B=8 it launches
+// only 8 x 11 x 5 = 440 blocks of 128 threads.
+//
+// The main loop (the TPU's v6 schedule): the block's rows are taken in
+// groups of eight, one kap (K = 8*kap + rho), with eight I and eight Q
+// accumulators in registers; the channels are the outer loop, ascending,
+// and each channel's per-(c, p) values (psi, w8, cos p, sin p, the bits
+// word) and its scalars (mu, symbol and pilot words, gain) are read from
+// shared memory once per kap instead of once per row, and its symbol
+// selects d_lo, d_df, s_lo, s_df (which depend on kap and w8 only)
+// computed once per kap.  That takes a per-row loop's ~55 flops per
+// channel-sample down to ~32 and gives each thread eight independent
+// accumulator chains.  Every output element sees _kernel_v5's per-row op
+// sequence and channel order, so the values are those of the default
+// `vec_kt=False` loop bit for bit (as v6 and v5 are on the TPU).  On the
+// H100 a per-row loop measured 1.43x to 1.84x slower for the same bits
+// (PERF.md).
 //
 // Design:
 // * CBOC: tau = (-1)^(parity(gb) + parity(K) + delta + floor(6*frac));
@@ -106,6 +124,88 @@ __device__ inline Smem carve(unsigned char* base, int C, int k_chunk) {
 
 __device__ inline float pm1(int word, int bit) {
   return 1.0f - 2.0f * (float)((word >> bit) & 1);
+}
+
+// the store of one sample: 250*acc truncated toward zero and packed
+// (I low 16 bits, Q high), or under F32 the untruncated float2
+template <bool F32>
+__device__ inline void store_sample(void* out, size_t at, float acc_i, float acc_q) {
+  if (F32) {
+    static_cast<float2*>(out)[at] = make_float2(AMP * acc_i, AMP * acc_q);
+  } else {
+    const int ii = (int)truncf(AMP * acc_i);
+    const int qq = (int)truncf(AMP * acc_q);
+    static_cast<int32_t*>(out)[at] =
+        (int32_t)(((uint32_t)ii & 0xFFFFu) | ((uint32_t)qq << 16));
+  }
+}
+
+template <bool CBOC, bool GAIN, bool F32>
+__device__ __forceinline__ void main_loop(const Smem& s, void* __restrict__ out, int tid,
+                                          int b, int p, int C, int n_k, int k_chunk,
+                                          int k_begin, int k_end, float w_plus,
+                                          float w_minus) {
+  // main loop (_kernel_v5 lines 180-259, the per-element ops of lines
+  // 260-336): k_begin and k_end are multiples of 8 (K_CHUNK and n_k are)
+  for (int K0 = k_begin; K0 < k_end; K0 += ROWS) {
+    const int kap = K0 >> 3;
+    float acc_i[ROWS], acc_q[ROWS];
+#pragma unroll
+    for (int rho = 0; rho < ROWS; ++rho) acc_i[rho] = acc_q[rho] = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float4 f = s.plf[c * P_TILE + tid];
+      const uint32_t bw = s.bits[c * P_TILE + tid];
+      const float mu_c = s.mu[c];
+      const int wd = s.sym[c];
+      const int wp = s.pil[c];
+      const float gain_c = GAIN ? s.gain[c] : 1.0f;
+      const float d0 = pm1(wd, kap), d1 = pm1(wd, kap + 1), d2 = pm1(wd, kap + 2);
+      const float s0 = pm1(wp, kap), s1 = pm1(wp, kap + 1), s2 = pm1(wp, kap + 2);
+      const float w8 = f.y;
+      const float d_lo = d0 + w8 * (d1 - d0);
+      const float d_df = (d1 + w8 * (d2 - d1)) - d_lo;
+      const float s_lo = s0 + w8 * (s1 - s0);
+      const float s_df = (s1 + w8 * (s2 - s1)) - s_lo;
+      const char4* chip_c8 = s.chip + c * ROWS * P_TILE + tid;
+      const float2* cisk_c8 = s.cisk + c * k_chunk + (K0 - k_begin);
+#pragma unroll
+      for (int rho = 0; rho < ROWS; ++rho) {
+        const float k8 = (float)(K0 + rho);
+        const char4 ch = chip_c8[rho * P_TILE];
+        const float t_kp = f.x + mu_c * k8;
+        const float delta = floorf(t_kp);
+        const float a0b = ch.x, a1b = ch.y, a0c = ch.z, a1c = ch.w;
+        const float chip_b = a0b + delta * (a1b - a0b);
+        const float chip_c = a0c + delta * (a1c - a0c);
+        const float b0 = (float)((bw >> rho) & 1u);
+        const float b1 = (float)((bw >> (8 + rho)) & 1u);
+        const float bsel = b0 + delta * (b1 - b0);
+        const float d_val = d_lo + bsel * d_df;
+        const float s_val = s_lo + bsel * s_df;
+        float m;
+        if (CBOC) {
+          const float frac = t_kp - delta;
+          const float j6 = floorf(6.0f * frac);
+          const int par = (int)((bw >> 16) & 1u) + (rho & 1) + (int)delta + (int)j6;
+          const bool tau_pos = (par & 1) == 0;
+          const float wb = tau_pos ? w_plus : w_minus;
+          const float wc = tau_pos ? w_minus : w_plus;
+          m = (chip_b * wb) * d_val - (chip_c * wc) * s_val;
+        } else {
+          m = chip_b * d_val - chip_c * s_val;
+        }
+        if (GAIN) m = m * gain_c;
+        const float2 ck = cisk_c8[rho];
+        const float cis_r = ck.x * f.z - ck.y * f.w;
+        const float cis_i = ck.x * f.w + ck.y * f.z;
+        acc_i[rho] = acc_i[rho] + m * cis_r;
+        acc_q[rho] = acc_q[rho] + m * cis_i;
+      }
+    }
+#pragma unroll
+    for (int rho = 0; rho < ROWS; ++rho)
+      store_sample<F32>(out, ((size_t)b * n_k + K0 + rho) * P_GRID + p, acc_i[rho], acc_q[rho]);
+  }
 }
 
 template <bool CBOC, bool GAIN, bool F32>
@@ -200,66 +300,8 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
   const float w_plus = alpha + beta;
   const float w_minus = alpha - beta;
 
-  // main loop (_kernel_v5 lines 260-336)
-  for (int K = k_begin; K < k_end; ++K) {
-    const int kap = K >> 3;
-    const int rho = K & 7;
-    const float k8 = (float)K;
-    float acc_i = 0.0f;
-    float acc_q = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float4 f = s.plf[c * P_TILE + tid];
-      const char4 ch = s.chip[(c * ROWS + rho) * P_TILE + tid];
-      const uint32_t bw = s.bits[c * P_TILE + tid];
-      const float t_kp = f.x + s.mu[c] * k8;
-      const float delta = floorf(t_kp);
-      const float a0b = ch.x, a1b = ch.y, a0c = ch.z, a1c = ch.w;
-      const float chip_b = a0b + delta * (a1b - a0b);
-      const float chip_c = a0c + delta * (a1c - a0c);
-      const float b0 = (float)((bw >> rho) & 1u);
-      const float b1 = (float)((bw >> (8 + rho)) & 1u);
-      const float bsel = b0 + delta * (b1 - b0);
-      const int wd = s.sym[c];
-      const int wp = s.pil[c];
-      const float d0 = pm1(wd, kap), d1 = pm1(wd, kap + 1), d2 = pm1(wd, kap + 2);
-      const float s0 = pm1(wp, kap), s1 = pm1(wp, kap + 1), s2 = pm1(wp, kap + 2);
-      const float w8 = f.y;
-      const float d_lo = d0 + w8 * (d1 - d0);
-      const float d_df = (d1 + w8 * (d2 - d1)) - d_lo;
-      const float s_lo = s0 + w8 * (s1 - s0);
-      const float s_df = (s1 + w8 * (s2 - s1)) - s_lo;
-      const float d_val = d_lo + bsel * d_df;
-      const float s_val = s_lo + bsel * s_df;
-      float m;
-      if (CBOC) {
-        // _kernel_v5 lines 294-304
-        const float frac = t_kp - delta;
-        const float j6 = floorf(6.0f * frac);
-        const int par = (int)((bw >> 16) & 1u) + (rho & 1) + (int)delta + (int)j6;
-        const bool tau_pos = (par & 1) == 0;
-        const float wb = tau_pos ? w_plus : w_minus;
-        const float wc = tau_pos ? w_minus : w_plus;
-        m = (chip_b * wb) * d_val - (chip_c * wc) * s_val;
-      } else {
-        m = chip_b * d_val - chip_c * s_val;
-      }
-      if (GAIN) m = m * s.gain[c];
-      const float2 ck = s.cisk[c * k_chunk + (K - k_begin)];
-      const float cis_r = ck.x * f.z - ck.y * f.w;
-      const float cis_i = ck.x * f.w + ck.y * f.z;
-      acc_i = acc_i + m * cis_r;
-      acc_q = acc_q + m * cis_i;
-    }
-    const size_t at = ((size_t)b * n_k + K) * P_GRID + p;
-    if (F32) {
-      static_cast<float2*>(out)[at] = make_float2(AMP * acc_i, AMP * acc_q);
-    } else {
-      const int ii = (int)truncf(AMP * acc_i);
-      const int qq = (int)truncf(AMP * acc_q);
-      static_cast<int32_t*>(out)[at] =
-          (int32_t)(((uint32_t)ii & 0xFFFFu) | ((uint32_t)qq << 16));
-    }
-  }
+  main_loop<CBOC, GAIN, F32>(s, out, tid, b, p, C, n_k, k_chunk, k_begin, k_end, w_plus,
+                             w_minus);
 }
 
 template <bool CBOC, bool GAIN, bool F32>
@@ -295,7 +337,9 @@ size_t synth_kp_v5_smem_bytes(int C, int k_chunk) { return smem_bytes(C, k_chunk
 // CBOC instantiation runs when `cboc` is non-zero (alpha, beta are then
 // its weights), the GAIN one when `chan_gain` is not null; `f32` selects
 // the float32 store (out is then (B, n_k*1300) float2), which has no
-// GAIN instantiation (cudaErrorInvalidValue).
+// GAIN instantiation.  k_chunk must be a multiple of 8 (the main loop
+// takes rows in groups of eight); else, or for f32 with gain,
+// cudaErrorInvalidValue.
 int synth_kp_v5_launch(const void* cp0, const void* two_a, const void* mu,
                        const void* g0, const void* o, const void* r,
                        const void* carr0, const void* fc, const void* fc_k,
@@ -307,7 +351,7 @@ int synth_kp_v5_launch(const void* cp0, const void* two_a, const void* mu,
                          sym_bits, pil_bits, chan_gain};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gain = chan_gain != nullptr;
-  if (f32 && gain) return (int)cudaErrorInvalidValue;
+  if (k_chunk % ROWS != 0 || (f32 && gain)) return (int)cudaErrorInvalidValue;
   if (f32 && cboc)
     return launch<true, false, true>(ops, vpack_rs, out, alpha, beta, B, C, n_k, t_rs, k_chunk, st);
   if (f32)

@@ -22,18 +22,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from galileo_sdr_sim_tpu.cli import _parse_time
-from galileo_sdr_sim_tpu.constants import LUT_AMPLITUDE
-from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
-from galileo_sdr_sim_tpu.models.e1 import E1_OS
-from galileo_sdr_sim_tpu.rinex import read_rinex_v3
-from galileo_sdr_sim_tpu.scenario import PositionProvider, ScenarioEngine, scenario_start_time
-
+from .cli import _parse_time
+from .constants import LUT_AMPLITUDE
+from .models.cboc import E1_CBOC
+from .models.e1 import E1_OS
 from .ops.bandlimit import polyphase_kernel
 from .ops.synth_kp import (
     COLS, GAIN_OPERAND, P_GRID, _pack_codes_rs, cboc_sign_banks, cboc_weights, kernel_operands,
     operands_to_device,
 )
+from .rinex import read_rinex_v3
+from .scenario import PositionProvider, ScenarioEngine, scenario_start_time
 
 CASES = ("random", "half_chip", "carrier_wrap", "negated_mu", "edges")
 BAR_MATCH = 0.999  # share of int16 values that must be identical

@@ -1,2 +1,2 @@
-"""Streaming executor of the PyTorch port (sinks are reused from
-galileo_sdr_sim_tpu.io.sinks)."""
+"""Streaming executor of the PyTorch port and its sinks (copies of the
+JAX package's io/sinks.py, io/udp.py and io/native_fifo.py)."""

@@ -34,15 +34,14 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from galileo_sdr_sim_tpu.constants import NUM_IQ_SAMPLES
-from galileo_sdr_sim_tpu.io.sinks import Sink
-from galileo_sdr_sim_tpu.profiling import Timer
-from galileo_sdr_sim_tpu.scenario import EpochStateTable, ScenarioEngine
-
+from ..constants import NUM_IQ_SAMPLES
 from ..ops.bandlimit import initial_state, synth_block_cboc_bandlimited
 from ..ops.synth import TILE, prepare_device_inputs, synth_block
 from ..ops.synth_kp import P_GRID, ROWS, mu_in_envelope, packed_to_iq16, prepare_kp_inputs
 from ..ops.synth_kp_cuda import synth_kp_packed
+from ..profiling import Timer
+from ..scenario import EpochStateTable, ScenarioEngine
+from .sinks import Sink
 
 
 def _slice_epoch(batch, e: int):

@@ -28,9 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from galileo_sdr_sim_tpu.constants import NUM_IQ_SAMPLES, SAMP_RATE
-from galileo_sdr_sim_tpu.scenario import EpochBatch
-
+from ..constants import NUM_IQ_SAMPLES, SAMP_RATE
+from ..scenario import EpochBatch
 from .synth_kp import CBOC_WIDTH, P_GRID, prepare_kp_inputs
 from .synth_kp_cuda import synth_kp_int16
 

@@ -19,14 +19,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from galileo_sdr_sim_tpu.codes import carrier_lut
-from galileo_sdr_sim_tpu.constants import (
+from ..codes import carrier_lut
+from ..constants import (
     CA_SEQ_LEN_E1,
     LUT_AMPLITUDE,
     NUM_IQ_SAMPLES,
     SAMP_RATE,
 )
-from galileo_sdr_sim_tpu.scenario import EpochBatch
+from ..scenario import EpochBatch
 
 DELT = 1.0 / SAMP_RATE
 TILE = 32768  # samples per seeded tile (the JAX engine's tile)

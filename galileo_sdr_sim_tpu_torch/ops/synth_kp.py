@@ -34,9 +34,8 @@ import sys
 import numpy as np
 import torch
 
-from galileo_sdr_sim_tpu.constants import LUT_AMPLITUDE, NUM_IQ_SAMPLES, SAMP_RATE
-from galileo_sdr_sim_tpu.scenario import EpochBatch
-
+from ..constants import LUT_AMPLITUDE, NUM_IQ_SAMPLES, SAMP_RATE
+from ..scenario import EpochBatch
 from .synth import _pad_batch
 
 DELT = 1.0 / SAMP_RATE

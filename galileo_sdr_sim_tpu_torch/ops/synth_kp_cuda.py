@@ -4,7 +4,10 @@ It replaces the Pallas TPU kernel `_kernel_v5`
 (galileo_sdr_sim_tpu/ops/synth_kp_pallas.py) in six instantiations,
 chosen by the operands and the emit: sine-BOC or CBOC (`cboc_ab` in the
 inputs), without or with per-channel gain (`chan_gain`), packed or
-float32.  Per block of B epochs `synth_kp_packed` writes (B, n_k, 1300)
+float32.  Every instantiation runs the TPU kernel's K-vectorised main
+loop (`vec_kt=True`, synth_kp_pallas.py:180-259), whose values are those
+of its default per-row loop bit for bit, so there is no `vec_kt` option
+here.  Per block of B epochs `synth_kp_packed` writes (B, n_k, 1300)
 int32 packed I/Q; `synth_kp_int16` is the same store viewed as
 (B, 2*n_k*1300) interleaved int16 (the TPU kernel's emit="int16");
 `synth_kp_accum` writes the untruncated (B, n_k*1300, 2) float32

@@ -32,18 +32,33 @@ import os
 import socket
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from galileo_sdr_sim_tpu.constants import NUM_IQ_SAMPLES
-from galileo_sdr_sim_tpu.parallel.distributed import (  # noqa: F401  (re-exported)
-    ENV_COORD, ENV_NPROC, ENV_PID, PSUM_MAX_LSB, PSUM_SAMPLE_IDENTITY_BOUND, presize,
-    write_segments,
-)
-from galileo_sdr_sim_tpu.profiling import Timer
-
+from ..constants import NUM_IQ_SAMPLES
 from ..ops.synth_kp import P_GRID, prepare_kp_inputs
+from ..profiling import Timer
 from .mesh import RankMesh, gather_objects, make_mesh, shard_kp_inputs, sharded_kp_step
+
+ENV_COORD = "GALILEO_COORDINATOR"
+ENV_NPROC = "GALILEO_NUM_PROCESSES"
+ENV_PID = "GALILEO_PROCESS_ID"
+
+# The accumulation-order bound for psum'd synthesis, stated once.
+#
+# A psum over the 'sat' axis associates the float32 channel additions
+# differently from the single-device sequential/tree reduction, so the
+# int16 truncation `(short)i_acc` (galileo-sdr.cpp:536) can flip a
+# sample by exactly 1 LSB where the accumulator lands on an integer
+# boundary.  Empirically < 0.1% of samples across the test scenarios,
+# never more than 1 LSB — hence: at least this fraction of samples must
+# be bit-identical, and no sample may differ by more than PSUM_MAX_LSB.
+# This is a float-association property, not nondeterminism: the lut512
+# direct engine under the same mesh is asserted exactly equal
+# (tests/test_sharding.py), and any single layout is reproducible.
+PSUM_SAMPLE_IDENTITY_BOUND = 0.999
+PSUM_MAX_LSB = 1
 
 # a rendezvous or collective that waits longer than this fails instead of
 # hanging the job
@@ -143,6 +158,25 @@ def synth_batch_kp_distributed(
             return []
         rows = iq[: B_real - e0]
         return [(e0, rows.reshape(rows.shape[0], -1)[:, : 2 * nsamples].cpu().numpy())]
+
+
+def write_segments(path: str | Path, segments, nsamples: int,
+                   base_epoch: int = 0) -> None:
+    """Offset-write this process's epoch segments into the shared file.
+
+    Process 0 must have pre-sized the file (see `presize`); every process
+    then pwrites its own contiguous byte ranges — no locks needed since
+    ranges are disjoint."""
+    bytes_per_epoch = 2 * nsamples * 2  # int16 I/Q
+    with open(path, "r+b") as fh:
+        for e0, rows in segments:
+            fh.seek((base_epoch + e0) * bytes_per_epoch)
+            fh.write(np.ascontiguousarray(rows, dtype=np.int16).tobytes())
+
+
+def presize(path: str | Path, nsamples: int, total_epochs: int) -> None:
+    with open(path, "wb") as fh:
+        fh.truncate(total_epochs * 2 * nsamples * 2)
 
 
 def barrier(name: str = "galileo") -> None:

@@ -34,13 +34,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from galileo_sdr_sim_tpu.constants import NUM_IQ_SAMPLES
-from galileo_sdr_sim_tpu.scenario import EpochBatch
-
+from ..constants import NUM_IQ_SAMPLES
 from ..convert import kp_shard
 from ..ops.synth import TILE, prepare_device_inputs, synth_accum
 from ..ops.synth_kp import P_GRID, packed_to_iq16, prepare_kp_inputs
 from ..ops.synth_kp_cuda import synth_kp_accum
+from ..scenario import EpochBatch
 
 
 @dataclass(frozen=True)

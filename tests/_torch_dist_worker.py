@@ -44,13 +44,18 @@ import torch.distributed as dist
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from galileo_sdr_sim_tpu.models.cboc import E1_CBOC  # noqa: E402
-from galileo_sdr_sim_tpu.profiling import Timer  # noqa: E402
+# JAX and the JAX package are blocked before the rest of the port loads
+from galileo_sdr_sim_tpu_torch._block_reference import install  # noqa: E402
+
+install()
+
 from galileo_sdr_sim_tpu_torch import cli  # noqa: E402
 from galileo_sdr_sim_tpu_torch.harness import FIXTURE_LLH, FIXTURE_START, fixture_engine  # noqa: E402
-from galileo_sdr_sim_tpu_torch.parallel import distributed as D  # noqa: E402
+from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC  # noqa: E402
 from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda  # noqa: E402
+from galileo_sdr_sim_tpu_torch.parallel import distributed as D  # noqa: E402
 from galileo_sdr_sim_tpu_torch.parallel import mesh as M  # noqa: E402
+from galileo_sdr_sim_tpu_torch.profiling import Timer  # noqa: E402
 
 NAV = REPO / "tests" / "data" / "obs_fixture_nav.rnx"
 NS = 10400  # one (8 x 1300) row cycle an epoch

@@ -15,7 +15,9 @@ within 1), and the band-limited stream to its CPU run by the per-sample
 bound of `bandlimit_bar`.  The f32 emit is held to its plain version by
 the same bars on its truncated values, and its truncation must equal the
 packed store bit for bit (every op before the store is shared).  Without
-a GPU every test skips: a CUDA kernel has no CPU mode.
+a GPU every test skips: a CUDA kernel has no CPU mode.  The gather
+kernel must equal `torch.take_along_dim`, and its plain version where an
+index lies outside the table.
 """
 
 import subprocess
@@ -26,14 +28,15 @@ import numpy as np
 import pytest
 import torch
 
-from galileo_sdr_sim_tpu.io.sinks import Sink
-from galileo_sdr_sim_tpu.models.cboc import E1_CBOC
-from galileo_sdr_sim_tpu.models.e1 import E1_OS
 from galileo_sdr_sim_tpu_torch.harness import (
     CASES, bandlimit_bar, cboc_bar, engine_bar, fixture_engine, synthetic_kp_inputs,
 )
+from galileo_sdr_sim_tpu_torch.io.sinks import Sink
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
+from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
+from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
 from galileo_sdr_sim_tpu_torch.ops import bandlimit as tbl
+from galileo_sdr_sim_tpu_torch.ops import gather_probe
 from galileo_sdr_sim_tpu_torch.ops import synth as tsynth
 from galileo_sdr_sim_tpu_torch.ops import synth_kp as tkp
 from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
@@ -44,6 +47,7 @@ CPU = torch.device("cpu")
 N_K = 200  # full 0.1 s epochs
 
 VARIANTS = {"cboc": dict(cboc=True), "gain": dict(gain=True), "cboc_gain": dict(cboc=True, gain=True)}
+KP_CS = [2, 8, 16]  # channel counts: tools/probe_vec_kt.py's, few to all 16 slots
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +71,7 @@ class _Collect(Sink):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("C", KP_CS)
 def test_kernel_matches_plain_version(gpu, C, case):
     inputs = synthetic_kp_inputs(8, C, 7, case, gpu)
     before = synth_kp_cuda.launch_count
@@ -133,7 +137,7 @@ def test_direct_engine_on_the_card(gpu, mode):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("C", KP_CS)
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_instantiation_matches_plain_version(gpu, variant, C, case):
     inputs = synthetic_kp_inputs(8, C, 9, case, gpu, **VARIANTS[variant])
@@ -218,7 +222,7 @@ def test_bandlimit_stream_on_the_card(gpu):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("C", KP_CS)
 @pytest.mark.parametrize("cboc", [False, True])
 def test_f32_emit_matches_plain_version(gpu, cboc, C, case):
     inputs = synthetic_kp_inputs(8, C, 13, case, gpu, cboc=cboc)
@@ -276,3 +280,51 @@ def test_nccl_refuses_two_ranks_on_one_gpu(gpu, tmp_path):
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK {rank} OK" in out, out[-3000:]
         assert "REFUSED" in out and "NCCL cannot run two ranks on one GPU" in out, out[-3000:]
+
+
+# --- the kap grid and the gather probe ---------------------------------------
+
+
+def test_launch_refuses_a_chunk_off_the_kap_grid(gpu):
+    """The main loop takes rows in groups of 8: the launch refuses a K
+    chunk that is not a multiple of 8 (the wrapper never asks for one)."""
+    lib, _ = synth_kp_cuda.library()
+    inputs = synthetic_kp_inputs(8, 8, 42, "random", gpu)
+    ptrs = [inputs[k].data_ptr() for k in tkp.SCALAR_OPERANDS]
+    out = torch.empty((8, N_K, 1300), dtype=torch.int32, device=gpu)
+    stream = torch.cuda.current_stream(gpu).cuda_stream
+    err = lib.synth_kp_v5_launch(*ptrs, None, inputs["vpack_rs"].data_ptr(), out.data_ptr(),
+                                 0.0, 0.0, 0, 0, 8, 8, N_K, tkp.T_RS, 36, stream)
+    assert err != 0
+
+
+@pytest.mark.parametrize("probe", gather_probe.PROBES)
+def test_gather_kernel_equals_take_along_dim(gpu, probe):
+    shape, maxidx, axis = probe
+    gen = torch.Generator().manual_seed(3)
+    tab, idx = gather_probe.probe_inputs(shape, maxidx, gen)
+    before = gather_probe.launch_count
+    got = gather_probe.take_along_axis(tab.to(gpu), idx.to(gpu), axis)
+    assert gather_probe.launch_count == before + 1
+    assert got.device == gpu and got.dtype == torch.int32
+    assert torch.equal(got, torch.take_along_dim(tab.to(gpu), idx.to(gpu).long(), dim=axis))
+    assert torch.equal(got.cpu(), gather_probe.take_along_axis_ref(tab, idx, axis))
+
+
+def test_gather_probe_main_on_the_card(gpu, capsys):
+    before = gather_probe.launch_count
+    assert gather_probe.main([]) == 0
+    assert gather_probe.launch_count == before + len(gather_probe.PROBES)
+    assert capsys.readouterr().out.count("CORRECT") == len(gather_probe.PROBES)
+
+
+def test_gather_kernel_gives_zero_outside_the_table(gpu):
+    """An index outside [0, n) gives 0, as the plain version gives, and
+    the kernel reads nothing outside the table."""
+    for shape, maxidx, axis in ((8, 128), 128, 1), ((128, 128), 128, 0):
+        gen = torch.Generator().manual_seed(4)
+        tab, idx = gather_probe.probe_inputs(shape, maxidx, gen)
+        idx[0, :3] = torch.tensor([-1, shape[axis], 2**31 - 1], dtype=torch.int32)
+        got = gather_probe.take_along_axis(tab.to(gpu), idx.to(gpu), axis).cpu()
+        assert torch.equal(got, gather_probe.take_along_axis_ref(tab, idx, axis))
+        assert torch.equal(got[0, :3], torch.zeros(3, dtype=torch.int32))
