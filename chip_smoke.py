@@ -81,6 +81,7 @@ ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "galileo_sdr_sim_tpu_torch"
 NAV = ROOT / "tests" / "data" / "obs_fixture_nav.rnx"
 DIST_WORKER = ROOT / "tests" / "_torch_dist_worker.py"
+DIGESTS = ROOT / "tests" / "data" / "torch_kp_digests.json"
 B, N_K = 8, 200
 NSAMP = N_K * 1300
 ABSENT_PRNS = (1, 2, 3)  # below the horizon in the fixture scene
@@ -89,9 +90,6 @@ MIN_METRIC = 8.0
 # reads ~7.9) and band-limited runs: tests/test_bandlimit.py's level
 MIN_METRIC_WEAK = 6.0
 E2E_RUNS = 3  # scenario runs through the CLI's build_run
-# ~5 ms of an H100's clock: longer than the host takes to queue ten calls
-# of a kernel wrapper (see median_ms)
-HOLD_CYCLES = 10_000_000
 RANKS_TIMEOUT_S = 600  # the two-rank phase, both ranks together
 # instantiation -> the operand variant that selects it
 VARIANTS = {
@@ -205,31 +203,6 @@ def host_ms(fn, per: int = 10) -> float:
     return t
 
 
-def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
-    """Median over n samples of the device time of one call, each sample
-    `per` back-to-back calls between two CUDA events, divided by `per`.
-    A sleep kernel of HOLD_CYCLES runs ahead of the first event, so the
-    host queues all `per` calls before the card reaches them: a call
-    whose device time is below its host-side launch cost (a few tens of
-    microseconds through a wrapper) is then timed on the card, not on
-    the host."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
-        e0.record()
-        for _ in range(per):
-            fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / per)
-    return float(np.median(times))
-
-
 def main() -> int:
     # --- 1. the card -----------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device: this smoke run needs one GPU")
@@ -247,12 +220,13 @@ def main() -> int:
     install()  # JAX and the JAX package, before the rest of the port loads
     from galileo_sdr_sim_tpu_torch import cli
     from galileo_sdr_sim_tpu_torch.harness import (
-        CASES, FIXTURE_LLH, FIXTURE_START, cboc_bar, engine_bar, fixture_engine,
-        synthetic_kp_inputs,
+        CASES, FIXTURE_LLH, FIXTURE_START, KP_INSTANTIATIONS, cboc_bar, engine_bar,
+        fixture_engine, kp_digests, synthetic_kp_inputs,
     )
     from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
     from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
-    from galileo_sdr_sim_tpu_torch.ops import bandlimit, gather_probe, synth_kp_cuda
+    from galileo_sdr_sim_tpu_torch.ops import bandlimit, gather_probe, measure, synth_kp_cuda
+    from galileo_sdr_sim_tpu_torch.ops.measure import median_ms
     from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
         pack_iq, packed_to_iq16, prepare_kp_inputs, synth_kp_accum_ref, synth_kp_int16_ref,
         synth_kp_packed_ref,
@@ -273,6 +247,34 @@ def main() -> int:
           f"{gbuilt.path.name} in {gbuilt.seconds:.2f} s, {time.perf_counter() - t0:.2f} s wall")
     print(built.log.strip())
     print(gbuilt.log.strip())
+    # what the compiler made of each instantiation: registers and spills,
+    # and the SASS instruction classes of the kernel and of its main loop,
+    # which must hold no int<->float conversion
+    for fn, line in measure.ptxas_summary(built.log).items():
+        print(f"ptxas {measure.kp_function(fn)}: {line}")
+    for fn, counts in measure.sass_counts(built.path).items():
+        name = measure.kp_function(fn)
+        for part in ("kernel", "loop"):
+            print(f"sass {name} {part}: " + " ".join(f"{k}={v}" for k, v in counts[part].items()))
+        conv = {k: counts["loop"][k] for k in measure.CONVERSIONS if counts["loop"][k]}
+        check(name not in KP_INSTANTIATIONS or (counts["loop"]["FFMA"] > 0 and not conv),
+              f"{name}: main loop not found or converts ({conv})")
+
+    # --- the same-bits guard: every instantiation's recorded digests -----
+    recorded = json.loads(DIGESTS.read_text())
+    print(f"digests recorded with {recorded['made_with']}")
+    n_same = n_all = 0
+    for name in KP_INSTANTIATIONS:
+        got = kp_digests(synth_kp_cuda, name, NAV, dev)
+        want = recorded["digests"][name]
+        check(set(got) == set(want), f"{name}: digest cases {sorted(got)} vs {sorted(want)}")
+        for key in want:
+            if got[key] != want[key]:
+                print(f"digest differs: {name} {key}")
+        n_same += sum(got[key] == want[key] for key in want)
+        n_all += len(want)
+    print(f"digests: {n_same} of {n_all} equal")
+    check(n_same == n_all, "the kernel does not reproduce the recorded digests")
 
     # --- 3. each instantiation vs its plain version on the card ----------
     worst = dict.fromkeys(VARIANTS, 0)
@@ -553,6 +555,12 @@ def main() -> int:
             times[(name, 8)] = (kern, plain)
             print(f"time {name} B={B} n_k={N_K} C=8: kernel {kern:.4f} ms, plain {plain:.4f} ms "
                   f"({gpu})")
+        # interactive (live) mode: one epoch a block
+        for name, (variant, f32) in KP_INSTANTIATIONS.items():
+            inputs = synthetic_kp_inputs(1, 8, 108, "random", dev, **variant)
+            wrapper = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
+            kern = median_ms(lambda: wrapper(inputs, N_K))
+            print(f"time {name} B=1 n_k={N_K} C=8: kernel {kern:.4f} ms ({gpu})")
         plain16 = median_ms(lambda: synth_kp_int16_ref(inputs16, N_K))
         kern16 = median_ms(lambda: synth_kp_cuda.synth_kp_int16(inputs16, N_K))
         print(f"time int16 view (cboc_gain) B={B} n_k={N_K} C=8: kernel {kern16:.4f} ms, "

@@ -229,10 +229,16 @@ def _refuse_unported(args) -> str | None:
         return "ERROR: distributed mode supports the file sink only (-U 1)."
     if args.disable_usrp is None:
         return ("ERROR: the USRP sink is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 6); use the file sink (-U 1).")
+                "(ROADMAP queue 1 item 5); use the file sink (-U 1).")
     if args.trace_dir:
         return ("ERROR: --trace-dir is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 12).")
+                "(ROADMAP queue 1 item 6).")
+    if args.checkpoint:
+        return ("ERROR: --checkpoint is not ported to the PyTorch engine yet "
+                "(ROADMAP queue 1 item 2).")
+    if args.pipeline_depth is not None and args.pipeline_depth > 1:
+        return ("ERROR: --pipeline-depth > 1 is not ported to the PyTorch engine yet "
+                "(ROADMAP queue 1 item 2).")
     return None
 
 

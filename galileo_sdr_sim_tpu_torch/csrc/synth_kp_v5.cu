@@ -90,8 +90,9 @@ constexpr float NPER = 8184.0f;
 
 struct Smem {
   float4* plf;      // [C][P_TILE]      psi, w8, cos p, sin p
-  char4* chip;      // [C][ROWS][P_TILE] a0b, a1b, a0c, a1c of row rho
-  uint32_t* bits;   // [C][P_TILE]      b0 bits 0..7, b1 bits 8..15,
+  uint32_t* chip;   // [C][ROWS][P_TILE] a0b, a1b - a0b, a0c, a1c - a0c of
+                    //                  row rho, one biased byte each
+  uint32_t* bits;   // [C][P_TILE]      b0 bits 0..7, b1 - b0 bits 8..15,
                     //                  parity(gb) bit 16 (CBOC)
   float2* cisk;     // [C][k_chunk]     cos, sin of the K factor
   float* mu;        // [C]
@@ -101,7 +102,7 @@ struct Smem {
 };
 
 __host__ __device__ inline size_t smem_bytes(int C, int k_chunk) {
-  return (size_t)C * P_TILE * (sizeof(float4) + ROWS * sizeof(char4) + sizeof(uint32_t)) +
+  return (size_t)C * P_TILE * (sizeof(float4) + ROWS * sizeof(uint32_t) + sizeof(uint32_t)) +
          (size_t)C * k_chunk * sizeof(float2) + (size_t)C * 4 * sizeof(float);
 }
 
@@ -109,8 +110,8 @@ __device__ inline Smem carve(unsigned char* base, int C, int k_chunk) {
   Smem s;
   s.plf = reinterpret_cast<float4*>(base);
   base += (size_t)C * P_TILE * sizeof(float4);
-  s.chip = reinterpret_cast<char4*>(base);
-  base += (size_t)C * ROWS * P_TILE * sizeof(char4);
+  s.chip = reinterpret_cast<uint32_t*>(base);
+  base += (size_t)C * ROWS * P_TILE * sizeof(uint32_t);
   s.bits = reinterpret_cast<uint32_t*>(base);
   base += (size_t)C * P_TILE * sizeof(uint32_t);
   s.cisk = reinterpret_cast<float2*>(base);
@@ -122,8 +123,40 @@ __device__ inline Smem carve(unsigned char* base, int C, int k_chunk) {
   return s;
 }
 
-__device__ inline float pm1(int word, int bit) {
-  return 1.0f - 2.0f * (float)((word >> bit) & 1);
+// No type conversion in the main loop: every value a conversion gave is a
+// small exact integer in float32, built here by a select or by the bits
+// of a float instead (the same values, so the same bits downstream).
+
+// +-1 symbol of bit `bit` of `word`: 1 - 2*bit exactly, by a select
+__device__ __forceinline__ float pm1(uint32_t word, int bit) {
+  return ((word >> bit) & 1u) ? -1.0f : 1.0f;
+}
+
+// 0.0f or 1.0f, bit `bit` of `word`, by a select
+__device__ __forceinline__ float bit01(uint32_t word, int bit) {
+  return ((word >> bit) & 1u) ? 1.0f : 0.0f;
+}
+
+// chip words hold four values v in [-2, 2] as bytes v + CHIP_BIAS
+constexpr int CHIP_BIAS = 2;
+constexpr float MAGIC23 = 8388608.0f;  // 2^23
+
+__host__ __device__ constexpr uint32_t chip_byte(int v) { return (uint32_t)(v + CHIP_BIAS); }
+
+// byte BYTE of chip word w as the float v: PRMT puts the byte under the
+// exponent of 2^23 (0x4B000000), where the float spacing is 1, giving
+// 2^23 + v + CHIP_BIAS exactly; the subtraction is exact
+template <int BYTE>
+__device__ __forceinline__ float chip_val(uint32_t w) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | BYTE)) -
+         (MAGIC23 + (float)CHIP_BIAS);
+}
+
+// parity of an integer-valued float x with |x| < 2^22: x + 1.5*2^23
+// lies in [2^23, 2^24), where the floats are the integers, so the sum is
+// exact and its lowest mantissa bit is x's parity (1.5*2^23 is even)
+__device__ __forceinline__ uint32_t parity(float x) {
+  return (uint32_t)__float_as_int(x + 1.5f * MAGIC23) & 1u;
 }
 
 // the store of one sample: 250*acc truncated toward zero and packed
@@ -146,8 +179,10 @@ __device__ __forceinline__ void main_loop(const Smem& s, void* __restrict__ out,
                                           int k_begin, int k_end, float w_plus,
                                           float w_minus) {
   // main loop (_kernel_v5 lines 180-259, the per-element ops of lines
-  // 260-336): k_begin and k_end are multiples of 8 (K_CHUNK and n_k are)
-  for (int K0 = k_begin; K0 < k_end; K0 += ROWS) {
+  // 260-336): k_begin and k_end are multiples of 8 (k_chunk and n_k are).
+  // K0 in float: K < 2^24, so k0f + rho is (float)(K0 + rho) exactly
+  float k0f = (float)k_begin;
+  for (int K0 = k_begin; K0 < k_end; K0 += ROWS, k0f += (float)ROWS) {
     const int kap = K0 >> 3;
     float acc_i[ROWS], acc_q[ROWS];
 #pragma unroll
@@ -156,38 +191,38 @@ __device__ __forceinline__ void main_loop(const Smem& s, void* __restrict__ out,
       const float4 f = s.plf[c * P_TILE + tid];
       const uint32_t bw = s.bits[c * P_TILE + tid];
       const float mu_c = s.mu[c];
-      const int wd = s.sym[c];
-      const int wp = s.pil[c];
+      const uint32_t wd = (uint32_t)s.sym[c] >> kap;
+      const uint32_t wp = (uint32_t)s.pil[c] >> kap;
       const float gain_c = GAIN ? s.gain[c] : 1.0f;
-      const float d0 = pm1(wd, kap), d1 = pm1(wd, kap + 1), d2 = pm1(wd, kap + 2);
-      const float s0 = pm1(wp, kap), s1 = pm1(wp, kap + 1), s2 = pm1(wp, kap + 2);
+      const uint32_t pgb = (bw >> 16) & 1u;
+      const float d0 = pm1(wd, 0), d1 = pm1(wd, 1), d2 = pm1(wd, 2);
+      const float s0 = pm1(wp, 0), s1 = pm1(wp, 1), s2 = pm1(wp, 2);
       const float w8 = f.y;
       const float d_lo = d0 + w8 * (d1 - d0);
       const float d_df = (d1 + w8 * (d2 - d1)) - d_lo;
       const float s_lo = s0 + w8 * (s1 - s0);
       const float s_df = (s1 + w8 * (s2 - s1)) - s_lo;
-      const char4* chip_c8 = s.chip + c * ROWS * P_TILE + tid;
+      const uint32_t* chip_c8 = s.chip + c * ROWS * P_TILE + tid;
       const float2* cisk_c8 = s.cisk + c * k_chunk + (K0 - k_begin);
 #pragma unroll
       for (int rho = 0; rho < ROWS; ++rho) {
-        const float k8 = (float)(K0 + rho);
-        const char4 ch = chip_c8[rho * P_TILE];
+        const float k8 = k0f + (float)rho;
+        const uint32_t ch = chip_c8[rho * P_TILE];
         const float t_kp = f.x + mu_c * k8;
         const float delta = floorf(t_kp);
-        const float a0b = ch.x, a1b = ch.y, a0c = ch.z, a1c = ch.w;
-        const float chip_b = a0b + delta * (a1b - a0b);
-        const float chip_c = a0c + delta * (a1c - a0c);
-        const float b0 = (float)((bw >> rho) & 1u);
-        const float b1 = (float)((bw >> (8 + rho)) & 1u);
-        const float bsel = b0 + delta * (b1 - b0);
+        // a1 - a0 is stored: the same exact value _kernel_v5 computes
+        const float chip_b = chip_val<0>(ch) + delta * chip_val<1>(ch);
+        const float chip_c = chip_val<2>(ch) + delta * chip_val<3>(ch);
+        // b1 - b0 is stored (0 or 1: see the prologue)
+        const float bsel = bit01(bw, rho) + delta * bit01(bw, 8 + rho);
         const float d_val = d_lo + bsel * d_df;
         const float s_val = s_lo + bsel * s_df;
         float m;
         if (CBOC) {
           const float frac = t_kp - delta;
           const float j6 = floorf(6.0f * frac);
-          const int par = (int)((bw >> 16) & 1u) + (rho & 1) + (int)delta + (int)j6;
-          const bool tau_pos = (par & 1) == 0;
+          // parity(gb) + parity(K) + delta + j6: delta + j6 is exact
+          const bool tau_pos = (parity(delta + j6) ^ pgb ^ (uint32_t)(rho & 1)) == 0u;
           const float wb = tau_pos ? w_plus : w_minus;
           const float wc = tau_pos ? w_minus : w_plus;
           m = (chip_b * wb) * d_val - (chip_c * wc) * s_val;
@@ -280,11 +315,17 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
       uint32_t bw = 0;
 #pragma unroll
       for (int rho = 0; rho < ROWS; ++rho) {
+        const int a0b = v[rho], a0c = v[16 + rho];
         s.chip[(c * ROWS + rho) * P_TILE + tid] =
-            make_char4(v[rho], v[8 + rho], v[16 + rho], v[24 + rho]);
+            chip_byte(a0b) | chip_byte(v[8 + rho] - a0b) << 8 | chip_byte(a0c) << 16 |
+            chip_byte(v[24 + rho] - a0c) << 24;
+        // b1 >= b0 for every gbm (gbm + 1 >= gbm in float32), so b1 - b0
+        // is 0 or 1: one bit
         const float thr = (float)COLS * ((float)ROWS - (float)rho);
-        bw |= (gbm >= thr ? 1u : 0u) << rho;
-        bw |= (gbm + 1.0f >= thr ? 1u : 0u) << (8 + rho);
+        const uint32_t b0 = gbm >= thr ? 1u : 0u;
+        const uint32_t b1 = gbm + 1.0f >= thr ? 1u : 0u;
+        bw |= b0 << rho;
+        bw |= (b1 - b0) << (8 + rho);
       }
       if (CBOC) {
         const float pgb = gb - 2.0f * floorf(gb * 0.5f);  // exact: gb is an integer

@@ -15,9 +15,15 @@ satellites in view, every epoch inside the factorized engine's envelope.
 `engine_bar` is the parity bar the port is held to on the int16 values
 of the packed output; `cboc_bar` its CBOC counterpart, and
 `bandlimit_bar` the per-sample bound of the band-limited stream.
+
+`kp_digests` takes the SHA-256 of each kp kernel instantiation's output
+on fixed cases (`kp_digest_cases`): the same-bits guard that a rewrite
+of the kernel is held to (tests/data/torch_kp_digests.json).
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -28,8 +34,8 @@ from .models.cboc import E1_CBOC
 from .models.e1 import E1_OS
 from .ops.bandlimit import polyphase_kernel
 from .ops.synth_kp import (
-    COLS, GAIN_OPERAND, P_GRID, _pack_codes_rs, cboc_sign_banks, cboc_weights, kernel_operands,
-    operands_to_device,
+    COLS, GAIN_OPERAND, K_EPOCH, P_GRID, _pack_codes_rs, cboc_sign_banks, cboc_weights,
+    kernel_operands, operands_to_device, prepare_kp_inputs,
 )
 from .rinex import read_rinex_v3
 from .scenario import PositionProvider, ScenarioEngine, scenario_start_time
@@ -45,6 +51,19 @@ BAR_MAX_DIFF = 4 * LUT_AMPLITUDE  # one chip-transition timing ULP (1000)
 # so the bar is tightened to 99.8%
 CBOC_BAR_MATCH = 0.998
 BL_SLACK = 2  # band-limit filter: trunc of float32 sums straddling an integer
+
+# kp kernel instantiation -> (the `synthetic_operands` variant that
+# selects it, whether it is the f32 emit)
+KP_INSTANTIATIONS = {
+    "synth_kp_v5": ({}, False),
+    "synth_kp_v5_gain": (dict(gain=True), False),
+    "synth_kp_v5_cboc": (dict(cboc=True), False),
+    "synth_kp_v5_cboc_gain": (dict(cboc=True, gain=True), False),
+    "synth_kp_v5_f32": ({}, True),
+    "synth_kp_v5_cboc_f32": (dict(cboc=True), True),
+}
+DIGEST_CS = (2, 8, 16)  # channel counts of the digest cases
+DIGEST_B = 8  # epochs a block of the digest cases
 
 FIXTURE_START = "2022/02/19,23:30:00"  # GST week 2197, 603000 s
 FIXTURE_LLH = (42.3601, -71.0589, 2.0)  # Boston, the CLI's default site
@@ -200,3 +219,35 @@ def bandlimit_bar(y_a, y_b, x_a, x_b) -> dict:
         "max_excess": excess,
         "ok": excess <= 1e-9,
     }
+
+
+def kp_digest_cases(name: str, nav_path, device):
+    """Yield (key, operands on `device`) of the digest cases of kp
+    instantiation `name`: B = 8 epochs, the five CASES at C = 2, 8 and
+    16 (seed 100 + C), then the first block of the fixture scene of the
+    nav file at `nav_path` (its CBOC model for CBOC, with gain for gain),
+    compacted to C = 8."""
+    variant, _ = KP_INSTANTIATIONS[name]
+    for C in DIGEST_CS:
+        for case in CASES:
+            yield f"C={C} {case}", synthetic_kp_inputs(DIGEST_B, C, 100 + C, case, device, **variant)
+    model = E1_CBOC if variant.get("cboc") else E1_OS
+    batch = next(fixture_engine(nav_path, 1.0, model).batches(DIGEST_B))
+    yield "fixture", prepare_kp_inputs(batch, K_EPOCH * P_GRID, pad_epochs=DIGEST_B,
+                                       device=device, apply_gain=bool(variant.get("gain")))
+
+
+def kp_digest(out: torch.Tensor) -> str:
+    """SHA-256 of a kernel output's bytes (packed int32 or float32)."""
+    return hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def kp_digests(cuda_module, name: str, nav_path, device) -> dict:
+    """{case key: digest} of instantiation `name` on its digest cases,
+    full 0.1 s epochs (n_k = 200), through the wrappers of
+    `cuda_module` (ops/synth_kp_cuda, or its counterpart in another
+    checkout)."""
+    _, f32 = KP_INSTANTIATIONS[name]
+    fn = cuda_module.synth_kp_accum if f32 else cuda_module.synth_kp_packed
+    return {key: kp_digest(fn(inputs, K_EPOCH))
+            for key, inputs in kp_digest_cases(name, nav_path, device)}

@@ -126,11 +126,11 @@ class StreamingSynthesizer:
         bandlimit: bool = False,
     ):
         if pipeline_depth is not None and pipeline_depth > 1:
-            raise _not_ported("pipeline_depth > 1", "ROADMAP queue 1 item 5")
+            raise _not_ported("pipeline_depth > 1", "ROADMAP queue 1 item 2")
         if checkpoint_path is not None:
-            raise _not_ported("checkpointing", "ROADMAP queue 1 item 5")
+            raise _not_ported("checkpointing", "ROADMAP queue 1 item 2")
         if not drain_host:
-            raise _not_ported("drain_host=False", "ROADMAP queue 1 item 5")
+            raise _not_ported("drain_host=False", "ROADMAP queue 1 item 2")
         if synth_engine not in ("auto", "kp", "kp_pallas", "direct"):
             raise ValueError(f"unknown synthesis engine {synth_engine!r}")
         if mode not in ("float", "lut512"):

@@ -84,7 +84,12 @@ def _pack_codes_rs(codes_b: np.ndarray, codes_c: np.ndarray) -> np.ndarray:
             = code_flat[c, (1023*rho + S(t) + (j-2) + shift) % 8184]
 
     with S(t) = floor(1023*t/1300).  One column slice at t = o + p holds
-    the five candidate taps of sample p (see the JAX original)."""
+    the five candidate taps of sample p (see the JAX original).  The
+    banks must hold -1, 0 or +1: the CUDA kernel stores a tap and the
+    difference of two taps as one biased byte each (csrc/synth_kp_v5.cu)."""
+    for bank in (codes_b, codes_c):
+        if bank.size and np.abs(bank.astype(np.int16)).max() > 1:
+            raise ValueError("code banks must hold -1, 0 or +1 chips")
     C = codes_b.shape[0]
     s_rs = (COLS * np.arange(T_RS)) // P_GRID
     out = np.zeros((C, W_RS, T_RS), np.int8)

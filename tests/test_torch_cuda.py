@@ -17,9 +17,12 @@ the same bars on its truncated values, and its truncation must equal the
 packed store bit for bit (every op before the store is shared).  Without
 a GPU every test skips: a CUDA kernel has no CPU mode.  The gather
 kernel must equal `torch.take_along_dim`, and its plain version where an
-index lies outside the table.
+index lies outside the table.  Every kp instantiation must reproduce the
+recorded digests of its output (tests/data/torch_kp_digests.json): the
+same bits as the kernel they were recorded from.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +32,8 @@ import pytest
 import torch
 
 from galileo_sdr_sim_tpu_torch.harness import (
-    CASES, bandlimit_bar, cboc_bar, engine_bar, fixture_engine, synthetic_kp_inputs,
+    CASES, KP_INSTANTIATIONS, bandlimit_bar, cboc_bar, engine_bar, fixture_engine, kp_digests,
+    synthetic_kp_inputs,
 )
 from galileo_sdr_sim_tpu_torch.io.sinks import Sink
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
@@ -43,6 +47,7 @@ from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
 
 NAV = Path(__file__).resolve().parent / "data" / "obs_fixture_nav.rnx"
 DIST_WORKER = Path(__file__).resolve().parent / "_torch_dist_worker.py"
+DIGESTS = Path(__file__).resolve().parent / "data" / "torch_kp_digests.json"
 CPU = torch.device("cpu")
 N_K = 200  # full 0.1 s epochs
 
@@ -93,6 +98,16 @@ def test_kernel_matches_plain_version_on_fixture_block(gpu):
     bar = engine_bar(got, ref)
     assert bar["ok"], bar
     assert np.count_nonzero(got) > 0.9 * got.size
+
+
+@pytest.mark.parametrize("name", list(KP_INSTANTIATIONS))
+def test_kernel_reproduces_the_recorded_digests(gpu, name):
+    """The same bits, on the five synthetic cases at C = 2, 8 and 16 and
+    on the fixture block (harness.kp_digest_cases)."""
+    want = json.loads(DIGESTS.read_text())["digests"][name]
+    got = kp_digests(synth_kp_cuda, name, NAV, gpu)
+    differ = sorted(key for key in want if got.get(key) != want[key])
+    assert set(got) == set(want) and not differ, differ
 
 
 def test_wrapper_refuses_operands_off_the_card(gpu):

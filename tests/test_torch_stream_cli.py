@@ -283,6 +283,27 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     assert cli.main(base + ["-U", "1", "--trace-dir", str(tmp_path)]) == 1
 
 
+@pytest.mark.parametrize("options, item", [
+    (["-U", "1", "--checkpoint", "run.ckpt"], 2),
+    (["-U", "1", "--pipeline-depth", "2"], 2),
+    ([], 5),  # the USRP sink: no -U
+    (["-U", "1", "--trace-dir", "trace"], 6),
+])
+def test_cli_refusal_is_one_error_line(tmp_path, capsys, options, item):
+    """An option that is not ported stops the CLI with one ERROR line that
+    names its item of ROADMAP.md's queue 1, exit code 1 and no traceback,
+    before anything is written."""
+    out = tmp_path / "x.ishort"
+    options = [str(tmp_path / o) if o in ("run.ckpt", "trace") else o for o in options]
+    rc = cli.main(["-e", str(NAV), "-t", START, "-d", "0.3", "-o", str(out), *options])
+    printed, err = capsys.readouterr()
+    assert rc == 1
+    assert printed.splitlines() == [printed.strip()], printed
+    assert printed.startswith("ERROR: ") and f"(ROADMAP queue 1 item {item})" in printed
+    assert "Traceback" not in err
+    assert not out.exists()
+
+
 def test_cuda_requested_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the refusal path is not reachable")
