@@ -177,6 +177,20 @@ def kp_bound(inputs: dict, n_k: int, f32: bool = False) -> tuple:
     return bound(ops, nbytes)
 
 
+def planes_bound(inputs: dict, n_k: int) -> tuple:
+    """`bound` of one prologue-kernel call: its bytes over the HBM rate.
+    The nine (B, C) operands it reads, the 32 code-table taps each
+    (b, c, p) selects, and the planes written once (52 bytes a (b, c, p),
+    8 bytes a (b, c, K))."""
+    from galileo_sdr_sim_tpu_torch.ops.synth_kp import P_GRID, W_PACK
+    from galileo_sdr_sim_tpu_torch.ops.synth_kp_cuda import PLANE_OPERANDS
+
+    B, C = inputs["cp0"].shape
+    nbytes = (sum(inputs[k].numel() * inputs[k].element_size() for k in PLANE_OPERANDS)
+              + B * C * P_GRID * (W_PACK + 52) + B * C * n_k * 8)
+    return bound(0, nbytes)
+
+
 def gather_bytes(idx: torch.Tensor, axis: int) -> int:
     """Bytes one take_along_axis call must move on these indices: each
     table element the indices reach read once (counted on this run's
@@ -227,9 +241,10 @@ def main() -> int:
     from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
     from galileo_sdr_sim_tpu_torch.ops import bandlimit, gather_probe, measure, synth_kp_cuda
     from galileo_sdr_sim_tpu_torch.ops.measure import median_ms
+    from galileo_sdr_sim_tpu_torch.ops.synth_kp_cuda import PLANES
     from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
-        pack_iq, packed_to_iq16, prepare_kp_inputs, synth_kp_accum_ref, synth_kp_int16_ref,
-        synth_kp_packed_ref,
+        kp_planes_ref, pack_iq, packed_to_iq16, prepare_kp_inputs, synth_kp_accum_ref,
+        synth_kp_int16_ref, synth_kp_packed_ref,
     )
     from galileo_sdr_sim_tpu_torch.parallel import distributed as D
     from galileo_sdr_sim_tpu_torch.parallel import mesh as M
@@ -275,6 +290,18 @@ def main() -> int:
         n_all += len(want)
     print(f"digests: {n_same} of {n_all} equal")
     check(n_same == n_all, "the kernel does not reproduce the recorded digests")
+    # live mode's one-epoch blocks (K chunks of 8 rows, 275 blocks) give
+    # the epochs of an eight-epoch block (chunks of 40) bit for bit
+    for name, (variant, f32) in KP_INSTANTIATIONS.items():
+        inputs = synthetic_kp_inputs(B, 8, 108, "edges", dev, **variant)
+        wrapper = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
+        whole = wrapper(inputs, N_K)
+        same = all(torch.equal(wrapper({k: v[b:b + 1].contiguous() if v.dim() == 2 else v
+                                        for k, v in inputs.items()}, N_K), whole[b:b + 1])
+                   for b in range(B))
+        print(f"{name}: one-epoch blocks (k_chunk {synth_kp_cuda.k_chunk(1, 8)}) equal the "
+              f"eight-epoch block (k_chunk {synth_kp_cuda.k_chunk(B, 8)}): {same}")
+        check(same, f"{name}: one-epoch blocks differ")
 
     # --- 3. each instantiation vs its plain version on the card ----------
     worst = dict.fromkeys(VARIANTS, 0)
@@ -318,6 +345,26 @@ def main() -> int:
     check(bar["ok"], f"int16 view: {bar}")
     worst_int16 = bar["max_abs_err"]
 
+    # the prologue kernel against kp_planes_ref: the integer planes, psi
+    # and w8 exactly, cos and sin of the K factor within 2^-22 (cosf and
+    # sinf against float64 rounded once), of the p factor within 2^-17
+    # (the kernel's FMA in carr0 + fc*p moves the phase by up to an ulp)
+    batch = next(fixture_engine(NAV, 1.0).batches(B))
+    plane_cases = [(C, "random", synthetic_kp_inputs(B, C, 100 + C, "random", dev)) for C in KP_CS]
+    plane_cases.append((8, "fixture block", prepare_kp_inputs(batch, NSAMP, pad_epochs=B, device=dev)))
+    worst_planes = 0.0
+    for C, case, inputs in plane_cases:
+        got = synth_kp_cuda.kp_planes(inputs, N_K)
+        ref = kp_planes_ref(inputs, N_K)
+        exact = all(torch.equal(got[k], ref[k]) for k in ("chip", "bits")) and torch.equal(
+            got["plf"][..., :2], ref["plf"][..., :2])
+        err_p = float((got["plf"][..., 2:] - ref["plf"][..., 2:]).abs().max())
+        err_k = float((got["cisk"] - ref["cisk"]).abs().max())
+        print(f"compare {PLANES} C={C} {case}: integer planes, psi, w8 equal={exact} "
+              f"cos/sin max_abs_err p {err_p:.3g} K {err_k:.3g}")
+        check(exact and err_p <= 2.0**-17 and err_k <= 2.0**-22, f"{PLANES} at C={C} {case}")
+        worst_planes = max(worst_planes, err_p, err_k)
+
     # --- 4. the f32 emit vs its plain version and the packed store --------
     F32 = {"synth_kp_v5_f32": False, "synth_kp_v5_cboc_f32": True}
     for name, cboc in F32.items():
@@ -347,7 +394,7 @@ def main() -> int:
             worst[name] = max(worst[name], bar["max_abs_err"])
 
     llh = ",".join(str(v) for v in FIXTURE_LLH)
-    launches = dict.fromkeys(VARIANTS, 0)
+    launches = dict.fromkeys((*VARIANTS, PLANES), 0)
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as tmp:
         # --- 5. the main paths through the CLI ----------------------------
         def acquire_file(out: Path, label: str, model, min_metric: float) -> None:
@@ -383,13 +430,15 @@ def main() -> int:
                 rc = cli.main(argv)
                 counts = dict(synth_kp_cuda.launch_counts)
                 int16 = synth_kp_cuda.int16_launch_count
+                planes = counts.pop(PLANES)
             finally:
                 for key in env or {}:
                     del os.environ[key]
             label = " ".join(options) or "default"
             if env:
                 label += " distributed"
-            print(f"main path {label}: rc={rc} launches={counts} int16 views={int16}")
+            print(f"main path {label}: rc={rc} launches={counts} prologue={planes} "
+                  f"int16 views={int16}")
             check(rc == 0, f"cli.main {label} returned {rc}")
             model = E1_CBOC if "--model" in options or "--bandlimit" in options else E1_OS
             epochs = len(fixture_engine(NAV, duration, model))
@@ -397,12 +446,14 @@ def main() -> int:
             check(counts[name] == n_blocks * blocks_x,
                   f"{label}: {counts[name]} launches of {name}, want {n_blocks * blocks_x}")
             check(sum(counts.values()) == counts[name], f"{label}: other instantiations ran")
+            check(planes == counts[name], f"{label}: {planes} prologue launches for {counts[name]}")
             size = out.stat().st_size
             print(f"main path {label}: {size} bytes for {epochs} epochs")
             check(size == epochs * NSAMP * 4, f"file holds {size} bytes, want {epochs} x {NSAMP} x 4")
             acquire_file(out, label, model, min_metric)
             if not keep:
                 out.unlink()
+            launches[PLANES] += planes
             return {"counts": counts, "int16": int16}
 
         launches["synth_kp_v5"] = main_path(
@@ -454,6 +505,7 @@ def main() -> int:
             counts = dict(synth_kp_cuda.launch_counts)
             print(f"mesh path cboc: launches={counts}")
             n_blocks = len(sharded)
+            check(counts.pop(PLANES) == n_blocks, f"mesh path cboc: prologue launches {counts}")
             check(counts["synth_kp_v5_cboc_f32"] == n_blocks and sum(counts.values()) == n_blocks,
                   f"mesh path cboc: {counts}, want {n_blocks} of synth_kp_v5_cboc_f32 only")
             launches["synth_kp_v5_cboc_f32"] = counts["synth_kp_v5_cboc_f32"]
@@ -512,7 +564,8 @@ def main() -> int:
             cards.append(json.loads(next(ln for ln in out.splitlines() if ln.startswith("CARD "))[5:]))
         epochs3 = len(fixture_engine(NAV, 3.0))
         for card_ in cards:
-            counts = card_["counts"]
+            counts = dict(card_["counts"])
+            check(counts.pop(PLANES) == counts["synth_kp_v5_f32"], f"two-rank prologue {counts}")
             print(f"two ranks, rank {card_['rank']} on {card_['device']}, mesh {card_['mesh']}: "
                   f"{card_['epochs']} epochs, launches={counts}")
             check(card_["mesh"] == {"sat": 2, "time": 1}, f"two-rank mesh {card_['mesh']}")
@@ -561,6 +614,11 @@ def main() -> int:
             wrapper = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
             kern = median_ms(lambda: wrapper(inputs, N_K))
             print(f"time {name} B=1 n_k={N_K} C=8: kernel {kern:.4f} ms ({gpu})")
+        planes_inputs = timing_inputs["synth_kp_v5"][0]
+        planes_ms = median_ms(lambda: synth_kp_cuda.kp_planes(planes_inputs, N_K))
+        planes_plain = median_ms(lambda: kp_planes_ref(planes_inputs, N_K))
+        print(f"time {PLANES} B={B} n_k={N_K} C=8: kernel {planes_ms:.4f} ms, plain "
+              f"{planes_plain:.4f} ms ({gpu})")
         plain16 = median_ms(lambda: synth_kp_int16_ref(inputs16, N_K))
         kern16 = median_ms(lambda: synth_kp_cuda.synth_kp_int16(inputs16, N_K))
         print(f"time int16 view (cboc_gain) B={B} n_k={N_K} C=8: kernel {kern16:.4f} ms, "
@@ -677,6 +735,8 @@ def main() -> int:
                              worst[name], *times[(name, 8)], kp_bound(inputs, N_K, f32)))
     entries.append(entry("synth_kp_v5_int16", kp_source, synth_kp_cuda.INT16_REPLACES,
                          launches_int16, worst_int16, kern16, plain16, kp_bound(inputs16, N_K)))
+    entries.append(entry(PLANES, kp_source, synth_kp_cuda.REPLACES[PLANES], launches[PLANES],
+                         worst_planes, planes_ms, planes_plain, planes_bound(planes_inputs, N_K)))
     entries.append(entry("gather_probe", "galileo_sdr_sim_tpu_torch/csrc/gather_probe.cu",
                          gather_probe.REPLACES, launches["gather_probe"], 0, gather["ms"],
                          gather["plain_ms"], (gather["bound_ms"], "bytes"), gather["library_ms"]))

@@ -137,8 +137,11 @@ def ptxas_summary(log: str) -> dict:
 
 
 def kp_function(mangled: str) -> str:
-    """The instantiation name of a mangled synth_kp_v5 kernel symbol
-    (`synth_kp_v5_kernel<CBOC, GAIN, F32>`), else the symbol."""
+    """The kernel name of a mangled symbol of csrc/synth_kp_v5.cu: the
+    instantiation of `synth_kp_v5_kernel<CBOC, GAIN, F32>`, or
+    synth_kp_v5_planes for the prologue kernel; else the symbol."""
+    if "kp_planes_kernel" in mangled:
+        return "synth_kp_v5_planes"
     m = re.search(r"synth_kp_v5_kernelILb([01])ELb([01])ELb([01])E", mangled)
     if not m:
         return mangled

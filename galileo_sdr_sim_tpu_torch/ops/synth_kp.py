@@ -365,6 +365,88 @@ def _cos_sin(ang: torch.Tensor) -> tuple:
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
 
 
+def _prologue(inputs: dict) -> dict:
+    """The per-(b, c, p) prologue of `_kernel_v5` in float32: 'psi',
+    'w8', 'gb', 'cpr', 'cpi' (B, C, P); 'taps' (B, C, 32, P), the 5-tap
+    select from the window table (rows a0b, a1b, a0c, a1c of the eight
+    rho); 'b0', 'b1' (B, C, 8, P), the code-period carry planes."""
+    cp0 = inputs["cp0"]
+    device = cp0.device
+    C = cp0.shape[1]
+    f32 = torch.float32
+    pp = torch.arange(P_GRID, dtype=f32, device=device)
+    col = lambda k: inputs[k][..., None]  # noqa: E731  (B, C, 1)
+    mu = col("mu")
+    phi = 2.0 * col("cp0") + col("two_a") * pp
+    gb = torch.floor(phi) + torch.where(mu < 0.0, -1.0, 0.0)
+    psi = phi - gb
+    gbm = gb - float(_NPER_F32) * torch.floor(gb * _INV_NPER_F32)
+    w8 = (gb >= float(_NPER_F32)).to(f32)
+    s_p = torch.floor(pp * _S_RATIO_F32)
+    m_p = float(COLS) * pp - float(P_GRID) * s_p
+    kap_p = (m_p + col("r") >= float(P_GRID)).to(f32)
+    e2 = (gb - col("g0")) - s_p - kap_p
+    ph_p = col("carr0") + col("fc") * pp
+    ph_p = ph_p - torch.floor(ph_p)
+    ang_p = _TWO_PI_F32 * ph_p
+    cpr, cpi = _cos_sin(ang_p)
+
+    # 5-tap select from the window vpack_rs[c, :, o + p]
+    j = (e2 + 2.0).to(torch.int64)  # (B, C, P)
+    valid = ((j >= 0) & (j < J_RS)).to(f32)[:, :, None, :]
+    rows = j.clamp(0, J_RS - 1)[:, :, None, :] * W_PACK + torch.arange(
+        W_PACK, device=device
+    )[None, None, :, None]  # (B, C, 32, P)
+    cols = (
+        inputs["o"].to(torch.int64)[..., None]
+        + torch.arange(P_GRID, device=device)
+    )[:, :, None, :]  # (B, C, 1, P)
+    chan = torch.arange(C, device=device)[None, :, None, None]
+    taps = inputs["vpack_rs"][chan, rows, cols].to(f32) * valid
+    rho = torch.arange(ROWS, dtype=f32, device=device)
+    thr = float(COLS) * (float(ROWS) - rho)[None, None, :, None]
+    b0 = (gbm[:, :, None, :] >= thr).to(f32)
+    b1 = (gbm[:, :, None, :] + 1.0 >= thr).to(f32)
+    return dict(psi=psi, w8=w8, gb=gb, cpr=cpr, cpi=cpi, taps=taps, b0=b0, b1=b1)
+
+
+def _cis_k(inputs: dict, n_k: int) -> tuple:
+    """cos, sin of the K factor 2*pi*frac(fc_k*K), (B, C, n_k) float32."""
+    k = torch.arange(n_k, dtype=torch.float32, device=inputs["fc_k"].device)
+    ph_k = inputs["fc_k"][..., None] * k
+    ph_k = ph_k - torch.floor(ph_k)
+    return _cos_sin(_TWO_PI_F32 * ph_k)
+
+
+def kp_planes_ref(inputs: dict, n_k: int) -> dict:
+    """Plain PyTorch version of the CUDA prologue kernel: the planes of
+    `_prologue` in the kernel's encodings, on the inputs' device.
+    'plf' (B, C, P, 4) float32 psi, w8, cos p, sin p; 'chip' (B, C, 8, P)
+    int32 words of a0b, a1b - a0b, a0c, a1c - a0c, one byte each biased
+    by 2; 'bits' (B, C, P) int32: b0 in bits 0..7, b1 - b0 in bits 8..15,
+    parity(gb) in bit 16; 'cisk' (B, C, n_k, 2) float32 cos, sin of the
+    K factor."""
+    with torch.inference_mode():
+        pro = _prologue(inputs)
+        taps = pro["taps"].to(torch.int32)  # exact small integers
+        a0b, a1b = taps[:, :, 0:8], taps[:, :, 8:16]
+        a0c, a1c = taps[:, :, 16:24], taps[:, :, 24:32]
+        chip = ((a0b + 2) | (a1b - a0b + 2) << 8 | (a0c + 2) << 16 | (a1c - a0c + 2) << 24)
+        shift = torch.arange(ROWS, dtype=torch.int32, device=taps.device)[:, None]
+        b0 = pro["b0"].to(torch.int32)
+        db = pro["b1"].to(torch.int32) - b0
+        gb = pro["gb"]
+        pgb = (gb - 2.0 * torch.floor(gb * 0.5) != 0.0).to(torch.int32)
+        bits = (b0 << shift).sum(2) | (db << (shift + 8)).sum(2) | pgb << 16
+        ckr, cki = _cis_k(inputs, n_k)
+        return {
+            "plf": torch.stack([pro["psi"], pro["w8"], pro["cpr"], pro["cpi"]], dim=-1),
+            "chip": chip,
+            "bits": bits.to(torch.int32),
+            "cisk": torch.stack([ckr, cki], dim=-1),
+        }
+
+
 def synth_kp_accum_ref(inputs: dict, n_k: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel's f32 emit -> (B, n_k*1300, 2)
     float32 `LUT_AMPLITUDE * acc`, I then Q, on the inputs' device: the
@@ -373,11 +455,12 @@ def synth_kp_accum_ref(inputs: dict, n_k: int) -> torch.Tensor:
 
     Follows `_kernel_v5` (galileo_sdr_sim_tpu/ops/synth_kp_pallas.py)
     in its sine-BOC or CBOC (`cboc_ab` in the inputs) branch, with or
-    without per-channel gain (`chan_gain`): the per-(c, p) prologue,
-    then the (K, p) main loop vectorized over (B, K, p), with channels
-    added in ascending order in float32 (never a reduction over the
-    channel axis: its order is the library's choice and lands an ulp off
-    the kernel's sequential adds, which flips trunc() at integer ties)."""
+    without per-channel gain (`chan_gain`): the per-(c, p) prologue
+    (`_prologue`), then the (K, p) main loop vectorized over (B, K, p),
+    with channels added in ascending order in float32 (never a reduction
+    over the channel axis: its order is the library's choice and lands an
+    ulp off the kernel's sequential adds, which flips trunc() at integer
+    ties)."""
     if n_k % ROWS != 0 or n_k // ROWS + 2 > SYM_BITS:
         raise ValueError(f"n_k={n_k}: need a multiple of {ROWS} with n_k/8 + 2 <= 32")
     cp0 = inputs["cp0"]
@@ -392,48 +475,19 @@ def synth_kp_accum_ref(inputs: dict, n_k: int) -> torch.Tensor:
         alpha, beta = (float(v) for v in inputs["cboc_ab"].tolist())
     gain = inputs.get(GAIN_OPERAND)
     with torch.inference_mode():
-        pp = torch.arange(P_GRID, dtype=f32, device=device)
-        col = lambda k: inputs[k][..., None]  # noqa: E731  (B, C, 1)
-
-        # --- prologue: per-(b, c, p) geometry --------------------------
-        mu = col("mu")
-        phi = 2.0 * col("cp0") + col("two_a") * pp
-        gb = torch.floor(phi) + torch.where(mu < 0.0, -1.0, 0.0)
-        psi = phi - gb
-        gbm = gb - float(_NPER_F32) * torch.floor(gb * _INV_NPER_F32)
-        w8 = (gb >= float(_NPER_F32)).to(f32)
-        s_p = torch.floor(pp * _S_RATIO_F32)
-        m_p = float(COLS) * pp - float(P_GRID) * s_p
-        kap_p = (m_p + col("r") >= float(P_GRID)).to(f32)
-        e2 = (gb - col("g0")) - s_p - kap_p
-        ph_p = col("carr0") + col("fc") * pp
-        ph_p = ph_p - torch.floor(ph_p)
-        ang_p = _TWO_PI_F32 * ph_p
-        cpr, cpi = _cos_sin(ang_p)
-
-        # 5-tap select from the window vpack_rs[c, :, o + p]
-        j = (e2 + 2.0).to(torch.int64)  # (B, C, P)
-        valid = ((j >= 0) & (j < J_RS)).to(f32)[:, :, None, :]
-        rows = j.clamp(0, J_RS - 1)[:, :, None, :] * W_PACK + torch.arange(
-            W_PACK, device=device
-        )[None, None, :, None]  # (B, C, 32, P)
-        cols = (
-            inputs["o"].to(torch.int64)[..., None]
-            + torch.arange(P_GRID, device=device)
-        )[:, :, None, :]  # (B, C, 1, P)
-        chan = torch.arange(C, device=device)[None, :, None, None]
-        sel = inputs["vpack_rs"][chan, rows, cols].to(f32) * valid
+        pro = _prologue(inputs)
+        psi, w8, gb, cpr, cpi = (pro[k] for k in ("psi", "w8", "gb", "cpr", "cpi"))
+        sel = pro["taps"]
         a0b, a1b = sel[:, :, 0:8], sel[:, :, 8:16]  # (B, C, rho, P)
         a0c, a1c = sel[:, :, 16:24], sel[:, :, 24:32]
         dab, dac = a1b - a0b, a1c - a0c
+        b0 = pro["b0"]
+        db = pro["b1"] - b0
         rho = torch.arange(ROWS, dtype=f32, device=device)
-        thr = float(COLS) * (float(ROWS) - rho)[None, None, :, None]
-        b0 = (gbm[:, :, None, :] >= thr).to(f32)
-        b1 = (gbm[:, :, None, :] + 1.0 >= thr).to(f32)
-        db = b1 - b0
         if cboc:
             pgb = gb - 2.0 * torch.floor(gb * 0.5)  # parity of gb (exact)
             kpar = (rho - 2.0 * torch.floor(rho * 0.5))[:, None]  # parity of K
+        ckr_all, cki_all = _cis_k(inputs, n_k)  # (B, C, n_k)
 
         # --- main loop: K = 8*kap + rho, channels ascending ------------
         k8 = torch.arange(n_k, dtype=f32, device=device).reshape(n_kap, ROWS)
@@ -476,11 +530,8 @@ def synth_kp_accum_ref(inputs: dict, n_k: int) -> torch.Tensor:
                 m = chip_b * d_val - chip_c * s_val
             if gain is not None:
                 m = m * gain[:, c, None, None, None]
-            ph_k = inputs["fc_k"][:, c, None, None] * k8  # (B, kap, rho)
-            ph_k = ph_k - torch.floor(ph_k)
-            ang_k = _TWO_PI_F32 * ph_k
-            ckr, cki = _cos_sin(ang_k)
-            ckr, cki = ckr[..., None], cki[..., None]
+            ckr = ckr_all[:, c].reshape(B, n_kap, ROWS)[..., None]
+            cki = cki_all[:, c].reshape(B, n_kap, ROWS)[..., None]
             cpr_c = cpr[:, c, None, None, :]
             cpi_c = cpi[:, c, None, None, :]
             cis_r = ckr * cpr_c - cki * cpi_c

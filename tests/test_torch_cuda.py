@@ -305,12 +305,60 @@ def test_launch_refuses_a_chunk_off_the_kap_grid(gpu):
     chunk that is not a multiple of 8 (the wrapper never asks for one)."""
     lib, _ = synth_kp_cuda.library()
     inputs = synthetic_kp_inputs(8, 8, 42, "random", gpu)
-    ptrs = [inputs[k].data_ptr() for k in tkp.SCALAR_OPERANDS]
+    planes = synth_kp_cuda._launch_planes(lib, inputs, N_K)
     out = torch.empty((8, N_K, 1300), dtype=torch.int32, device=gpu)
     stream = torch.cuda.current_stream(gpu).cuda_stream
-    err = lib.synth_kp_v5_launch(*ptrs, None, inputs["vpack_rs"].data_ptr(), out.data_ptr(),
-                                 0.0, 0.0, 0, 0, 8, 8, N_K, tkp.T_RS, 36, stream)
-    assert err != 0
+    for chunk in (36, 0):
+        err = lib.synth_kp_v5_launch(
+            inputs["mu"].data_ptr(), inputs["sym_bits"].data_ptr(), inputs["pil_bits"].data_ptr(),
+            None, planes.data_ptr(), out.data_ptr(), 0.0, 0.0, 0, 0, 8, 8, N_K, chunk, stream)
+        assert err != 0
+
+
+def test_sizes_agree_with_the_source(gpu):
+    """The wrapper's shared-memory and scratch sizes are the source's."""
+    lib, _ = synth_kp_cuda.library()
+    for C in (1, 2, 8, 16):
+        for k in (8, 16, 40):
+            assert lib.synth_kp_v5_smem_bytes(C, k) == synth_kp_cuda.smem_bytes(C, k)
+        for B in (1, 8):
+            assert lib.synth_kp_v5_planes_bytes(B, C, N_K) == synth_kp_cuda.planes_bytes(B, C, N_K)
+
+
+@pytest.mark.parametrize("case", ["random", "edges", "negated_mu"])
+@pytest.mark.parametrize("C", KP_CS)
+def test_prologue_kernel_matches_kp_planes_ref(gpu, C, case):
+    """The prologue kernel's planes against the plain version's: psi, w8,
+    the chip and bits words exactly; cos and sin of the K factor within
+    2^-22 (the kernel's precise cosf/sinf against float64 rounded once),
+    of the p factor within 2^-17: there the kernel contracts carr0 +
+    fc*p into one FMA (-fmad=true) and the plain version rounds twice, so
+    the phase, of magnitude below 8 before its fraction is taken, may
+    differ by a float32 ulp (2^-21), 2*pi times that in the angle."""
+    inputs = synthetic_kp_inputs(8, C, 17, case, gpu, cboc=case == "edges")
+    before = synth_kp_cuda.launch_counts[synth_kp_cuda.PLANES]
+    got = synth_kp_cuda.kp_planes(inputs, N_K)
+    assert synth_kp_cuda.launch_counts[synth_kp_cuda.PLANES] == before + 1
+    ref = tkp.kp_planes_ref(inputs, N_K)
+    for key in ("chip", "bits"):
+        assert torch.equal(got[key], ref[key]), key
+    assert torch.equal(got["plf"][..., :2], ref["plf"][..., :2])
+    assert float((got["plf"][..., 2:] - ref["plf"][..., 2:]).abs().max()) <= 2.0**-17
+    assert float((got["cisk"] - ref["cisk"]).abs().max()) <= 2.0**-22
+
+
+@pytest.mark.parametrize("name", list(KP_INSTANTIATIONS))
+def test_one_epoch_blocks_equal_the_eight_epoch_block(gpu, name):
+    """Live mode's B = 1 blocks (K chunks of 8 rows) give each epoch of a
+    B = 8 block (chunks of 40) bit for bit: an epoch's output depends on
+    its own operands only."""
+    variant, f32 = KP_INSTANTIATIONS[name]
+    inputs = synthetic_kp_inputs(8, 8, 19, "edges", gpu, **variant)
+    fn = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
+    whole = fn(inputs, N_K)
+    for b in range(8):
+        one = {k: v[b:b + 1].contiguous() if v.dim() == 2 else v for k, v in inputs.items()}
+        assert torch.equal(fn(one, N_K), whole[b:b + 1]), b
 
 
 @pytest.mark.parametrize("probe", gather_probe.PROBES)

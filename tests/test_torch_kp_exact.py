@@ -10,11 +10,20 @@ float counter and the lowest mantissa bit of x + 1.5*2^23.  Equal
 values give equal bits through the inexact operations that follow, so
 these checks plus the recorded digests (tests/test_torch_cuda.py) are
 the same-bits argument.  Both FMA contractions (-fmad=true and false)
-are emulated where an expression could be contracted.  No JAX here.
+are emulated where an expression could be contracted.
+
+The prologue kernel's planes: `kp_planes_ref` against the plain
+version's own prologue, the scratch layout, and the policy that sizes
+the main kernel's K chunks.  No JAX here.
 """
 
 import numpy as np
 import pytest
+import torch
+
+from galileo_sdr_sim_tpu_torch.harness import synthetic_kp_inputs
+from galileo_sdr_sim_tpu_torch.ops import synth_kp as tkp
+from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
 
 F32 = np.float32
 MAGIC23 = F32(2.0**23)
@@ -208,3 +217,83 @@ def test_whole_body_same_bits(cboc, contract):
               mul_add(delta, bit01(word, 8 + rho), bit01(word, rho), contract),
               (parity(delta + j6) ^ pgb ^ (rho & 1).astype(np.uint32)) == 0)
     assert np.array_equal(bits(new), bits(old))
+
+
+# --- the prologue kernel's planes and the grid -------------------------
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("C", [1, 2, 8, 16])
+def test_k_chunk_policy(B, C):
+    """A multiple of 8 rows, within the shared memory of a block, and at
+    least two blocks per SM of an H100 wherever 8 rows can give them;
+    today's 40 rows at B = 8."""
+    k = synth_kp_cuda.k_chunk(B, C, 200)
+    blocks = synth_kp_cuda.P_TILES * B * -(-200 // k)
+    assert k % 8 == 0 and 8 <= k <= synth_kp_cuda.K_CHUNK
+    assert synth_kp_cuda.smem_bytes(C, k) <= synth_kp_cuda.SMEM_LIMIT
+    assert blocks >= synth_kp_cuda.MIN_BLOCKS == 264
+    if B == 1:
+        assert (k, blocks) == (8, 275)
+    if B == 8:
+        assert (k, blocks) == (40, 440)
+    assert synth_kp_cuda.k_chunk(B, C, 8) == 8
+
+
+@pytest.mark.parametrize("cboc", [False, True])
+@pytest.mark.parametrize("case", ["random", "edges", "negated_mu"])
+def test_planes_ref_encodes_the_plain_prologue(cboc, case):
+    """kp_planes_ref holds, in the kernel's encodings, exactly the planes
+    the plain version (synth_kp_packed_ref) computes: the byte-permute
+    decode of each chip word gives a0 and a1 - a0 of both codes, the bits
+    word b0, b1 - b0 and parity(gb), and cisk the main loop's K factor."""
+    t = synthetic_kp_inputs(2, 8, 21, case, torch.device("cpu"), cboc=cboc)
+    planes = tkp.kp_planes_ref(t, 16)
+    pro = tkp._prologue(t)
+    assert planes["plf"].dtype == torch.float32 and planes["plf"].shape == (2, 8, 1300, 4)
+    for i, key in enumerate(("psi", "w8", "cpr", "cpi")):
+        assert torch.equal(planes["plf"][..., i], pro[key])
+    words = planes["chip"].numpy().astype(np.int64).astype(np.uint32)  # (B, C, 8, P)
+    taps = pro["taps"].numpy()
+    for code, base in ((0, 0), (1, 16)):
+        a0, a1 = taps[:, :, base:base + 8], taps[:, :, base + 8:base + 16]
+        assert np.array_equal(chip_val(words, 2 * code), a0)
+        assert np.array_equal(chip_val(words, 2 * code + 1), a1 - a0)
+    word = planes["bits"].numpy().view(np.uint32)[:, :, None, :]
+    rho = np.arange(8, dtype=np.uint32)[:, None]
+    assert np.array_equal(bit01(word >> rho, 0), pro["b0"].numpy())
+    assert np.array_equal(bit01(word >> rho, 8), (pro["b1"] - pro["b0"]).numpy())
+    gb = pro["gb"].numpy()
+    assert np.array_equal(bit01(word[:, :, 0], 16), np.abs(np.fmod(gb, 2)).astype(F32))
+    ckr, cki = tkp._cis_k(t, 16)
+    assert torch.equal(planes["cisk"], torch.stack([ckr, cki], dim=-1))
+
+
+def test_decode_planes_follows_the_scratch_layout():
+    """A scratch written in the layout the source documents (per (b, c)
+    over 1408 columns: float4 plf, two uint4 of chip words, the bits
+    word; then the float2 K factors) decodes to the planes it holds."""
+    B, C, n_k, pad = 2, 3, 16, 1408
+    rng = np.random.default_rng(3)
+    plf = rng.standard_normal((B, C, pad, 4)).astype(F32)
+    chip = rng.integers(0, 2**31, (B, C, 8, pad)).astype(np.int32)
+    bits = rng.integers(0, 2**17, (B, C, pad)).astype(np.int32)
+    cisk = rng.standard_normal((B, C, n_k, 2)).astype(F32)
+    chip_uint4 = chip.reshape(B, C, 2, 4, pad).transpose(0, 1, 2, 4, 3)  # [b][c][h][p][4]
+    raw = np.concatenate([plf.view(np.int32).ravel(), chip_uint4.ravel(), bits.ravel(),
+                          cisk.view(np.int32).ravel()])
+    assert raw.nbytes == synth_kp_cuda.planes_bytes(B, C, n_k)
+    got = synth_kp_cuda.decode_planes(torch.from_numpy(raw.view(np.uint8)), B, C, n_k)
+    assert np.array_equal(got["plf"].numpy(), plf[:, :, :1300])
+    assert np.array_equal(got["chip"].numpy(), chip[..., :1300])
+    assert np.array_equal(got["bits"].numpy(), bits[..., :1300])
+    assert np.array_equal(got["cisk"].numpy(), cisk)
+
+
+def test_kp_planes_on_the_cpu_is_the_plain_version():
+    t = synthetic_kp_inputs(1, 2, 5, "random", torch.device("cpu"))
+    before = dict(synth_kp_cuda.launch_counts)
+    got = synth_kp_cuda.kp_planes(t, 8)
+    ref = tkp.kp_planes_ref(t, 8)
+    assert synth_kp_cuda.launch_counts == before
+    assert all(torch.equal(got[k], ref[k]) for k in ref)

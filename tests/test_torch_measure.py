@@ -84,4 +84,5 @@ def test_ptxas_summary_and_names():
     assert measure.kp_function(KERNEL) == "synth_kp_v5_cboc"
     assert measure.kp_function(KERNEL.replace("ILb1ELb0ELb0E", "ILb0ELb1ELb0E")) == "synth_kp_v5_gain"
     assert measure.kp_function(KERNEL.replace("ILb1ELb0ELb0E", "ILb1ELb0ELb1E")) == "synth_kp_v5_cboc_f32"
-    assert measure.kp_function(OTHER) == OTHER
+    assert measure.kp_function(OTHER) == "synth_kp_v5_planes"
+    assert measure.kp_function("_Z6gatherPKiS0_Pii") == "_Z6gatherPKiS0_Pii"

@@ -72,9 +72,10 @@ def test_accum_vec_kt_matches_pallas_v6_truncated():
 
 
 def test_cpu_path_counts_no_launch():
-    """The six instantiations are counted where the kernel launches, and
-    nowhere else: the CPU path of each entry point counts nothing."""
-    assert len(synth_kp_cuda.REPLACES) == 6
+    """The six instantiations and the prologue kernel are counted where
+    they launch, and nowhere else: the CPU path of each entry point
+    counts nothing."""
+    assert len(synth_kp_cuda.REPLACES) == 7 and synth_kp_cuda.PLANES in synth_kp_cuda.REPLACES
     _, t = synthetic_pair(1, 2, seed=42, case="random")
     _, g = synthetic_pair(1, 2, seed=42, case="random", cboc=True, gain=True)
     before = (synth_kp_cuda.launch_count, dict(synth_kp_cuda.launch_counts),
@@ -82,6 +83,7 @@ def test_cpu_path_counts_no_launch():
     synth_kp_cuda.synth_kp_packed(t, 8)
     synth_kp_cuda.synth_kp_accum(t, 8)
     synth_kp_cuda.synth_kp_int16(g, 8)
+    synth_kp_cuda.kp_planes(t, 8)
     assert (synth_kp_cuda.launch_count, synth_kp_cuda.launch_counts,
             synth_kp_cuda.int16_launch_count) == before
 
