@@ -7,18 +7,26 @@ before the port is imported: the port stands alone.
 
 Phases, each printed on its own lines; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit); a CUDA device is required;
-2. build, in parallel, of the CUDA kernel csrc/synth_kp_v5.cu (its six
-   instantiations: sine-BOC or CBOC, without or with per-channel gain,
-   and the f32 emit of sine-BOC and CBOC, all in the TPU kernel's
-   K-vectorised main loop) and of csrc/gather_probe.cu, from this
-   checkout;
+2. build, in parallel, of csrc/synth_kp_v5.cu (its prologue kernel and
+   the six instantiations of its main kernel: sine-BOC or CBOC, without
+   or with per-channel gain, and the f32 emit of sine-BOC and CBOC, all
+   in the TPU kernel's K-vectorised main loop) and of
+   csrc/gather_probe.cu, from this checkout; each kernel's registers and
+   spills (ptxas) and SASS instruction classes (cuobjdump), whole and in
+   its main loop, which must hold no int<->float conversion; then the
+   same-bits guard: every instantiation reproduces the digests of
+   tests/data/torch_kp_digests.json ("digests: N of N equal"), and
+   one-epoch blocks (live mode's grid) equal the epochs of an
+   eight-epoch block;
 3. each instantiation against its plain PyTorch version on the card, at
    B=8 epochs x 200 rows x 1300 samples, C = 2, 8 and 16 channels, on
    seeded synthetic operands (adversarial cases included) and on one
    block of the fixture scene (its CBOC version for the CBOC
    instantiations), held to the engine bar (>= 99.9% of int16 values
    identical, every difference <= 1000; `cboc_bar`, >= 99.8%, for
-   CBOC); the int16 view against its plain version;
+   CBOC); the int16 view against its plain version; the prologue kernel
+   against `kp_planes_ref` (integer planes exact, cos/sin within 2^-22
+   for the K factor and 2^-17 for the p factor);
 4. the kernel's f32 emit (sine-BOC and CBOC) against its plain version
    on the same operands as in 3, plus one uncompacted fixture block
    (C = 16): its truncation held to the engine bar (`cboc_bar`) and
@@ -46,8 +54,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    psum bar (>= 99.9% identical, no sample off by more than 1 LSB), the
    first acquired;
 7. timings with CUDA events (kernel vs plain version for each
-   instantiation and the f32 emit, median of 25 samples of 10
-   back-to-back calls queued behind a sleep kernel, after warm-up, and
+   instantiation and the f32 emit at B = 8, each instantiation at B = 1,
+   the prologue kernel alone at B = 8 and B = 1, median of 25 samples of
+   10 back-to-back calls queued behind a sleep kernel, after warm-up, and
    each wrapper's host time a call; the gather kernel beside its plain
    version and `torch.take_along_dim` on the seven probe shapes; the
    band-limit filter per block;
@@ -59,8 +68,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    torch.profiler.
 The JSON summary of the kernels (with each one's bound: the larger of
 its float32 operations over the card's FP32 peak and its bytes over the
-HBM rate, see `kp_bound` and `gather_bytes`) and the card's name and power limit are the
-two lines before the last; the last line is {"ok": true, "device": {...}}.
+HBM rate, see `kp_bound`, `planes_bound` and `gather_bytes`) and the
+card's name and power limit are the two lines before the last; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -91,13 +101,6 @@ MIN_METRIC = 8.0
 MIN_METRIC_WEAK = 6.0
 E2E_RUNS = 3  # scenario runs through the CLI's build_run
 RANKS_TIMEOUT_S = 600  # the two-rank phase, both ranks together
-# instantiation -> the operand variant that selects it
-VARIANTS = {
-    "synth_kp_v5": {},
-    "synth_kp_v5_cboc": dict(cboc=True),
-    "synth_kp_v5_gain": dict(gain=True),
-    "synth_kp_v5_cboc_gain": dict(cboc=True, gain=True),
-}
 # channel counts of the synthetic checks: tools/probe_vec_kt.py's, from
 # few channels to all 16 slots
 KP_CS = (2, 8, 16)
@@ -304,6 +307,9 @@ def main() -> int:
         check(same, f"{name}: one-epoch blocks differ")
 
     # --- 3. each instantiation vs its plain version on the card ----------
+    # packed instantiation -> its operand variant; f32 one -> whether CBOC
+    VARIANTS = {name: v for name, (v, f32) in KP_INSTANTIATIONS.items() if not f32}
+    F32 = {name: bool(v) for name, (v, f32) in KP_INSTANTIATIONS.items() if f32}
     worst = dict.fromkeys(VARIANTS, 0)
     for name, variant in VARIANTS.items():
         bar_fn = cboc_bar if "cboc" in variant else engine_bar
@@ -366,7 +372,6 @@ def main() -> int:
         worst_planes = max(worst_planes, err_p, err_k)
 
     # --- 4. the f32 emit vs its plain version and the packed store --------
-    F32 = {"synth_kp_v5_f32": False, "synth_kp_v5_cboc_f32": True}
     for name, cboc in F32.items():
         bar_fn = cboc_bar if cboc else engine_bar
         model = E1_CBOC if cboc else E1_OS
@@ -619,6 +624,9 @@ def main() -> int:
         planes_plain = median_ms(lambda: kp_planes_ref(planes_inputs, N_K))
         print(f"time {PLANES} B={B} n_k={N_K} C=8: kernel {planes_ms:.4f} ms, plain "
               f"{planes_plain:.4f} ms ({gpu})")
+        inputs = synthetic_kp_inputs(1, 8, 108, "random", dev)
+        print(f"time {PLANES} B=1 n_k={N_K} C=8: kernel "
+              f"{median_ms(lambda: synth_kp_cuda.kp_planes(inputs, N_K)):.4f} ms ({gpu})")
         plain16 = median_ms(lambda: synth_kp_int16_ref(inputs16, N_K))
         kern16 = median_ms(lambda: synth_kp_cuda.synth_kp_int16(inputs16, N_K))
         print(f"time int16 view (cboc_gain) B={B} n_k={N_K} C=8: kernel {kern16:.4f} ms, "

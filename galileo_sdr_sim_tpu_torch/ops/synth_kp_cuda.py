@@ -44,9 +44,10 @@ PLANES = "synth_kp_v5_planes"  # the prologue kernel
 # the operands the prologue reads, in the order of its launch
 PLANE_OPERANDS = ("cp0", "two_a", "mu", "g0", "o", "r", "carr0", "fc", "fc_k")
 # kernel -> file:line of the part of `_kernel_v5` it replaces: the main
-# kernel's instantiations the kernel (sine-BOC), use_gain=True, cboc=True
-# (with and without gain), emit="f32" (sine-BOC and CBOC); the prologue
-# kernel its per-(c, p) prologue
+# kernel's instantiations replace the kernel (sine-BOC) and its
+# use_gain=True, cboc=True (with and without gain) and emit="f32"
+# (sine-BOC and CBOC) branches; the prologue kernel its per-(c, p)
+# prologue
 REPLACES = {
     "synth_kp_v5": f"{_PALLAS}:74",
     "synth_kp_v5_gain": f"{_PALLAS}:307",
