@@ -65,7 +65,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
    of a 10 s `--bandlimit` run (3 runs each), of a 10 s one-process
    distributed run (3 runs) and of a 10 s two-rank run, each with its
    stage split, and the device time of a 5 s `--bandlimit` run under
-   torch.profiler.
+   torch.profiler;
+8. the acceptance tier and the stream's modes, at full width (B = 8,
+   the fixture scene's 7 satellites), each run with the counts set to 0
+   just before it and read just after: 19 s from 23:30:18 (harness
+   PVT_START) through cli.main, then the in-repo receiver's PVT fix
+   (harness.pvt_fix) from the file, >= 5 satellites within 15 m and the
+   receive time within 1e-5 s; the same with --bandlimit (12 launches
+   a block through the int16 view), >= 5 satellites within 20 m;
+   --pipeline-depth 3, byte-identical to the depth-1 file with the same
+   launches; a crash at depth 3 (a snapshot every 2-epoch block, the
+   sink stops the run after 3 blocks) and a resume by a fresh executor,
+   together byte-identical to one depth-1 run of the 2 s scene; the
+   device-resident drain (harness.AbsSumSink sums |x| on the card per
+   block) equal to the host drain's sums, at depth 1 and 3, every block
+   a CUDA tensor; live mode at B = 1 (harness.live_pickup): a UDP
+   position update sent while block 1 drains reaches block 3's samples;
+   the file-sink rate of 30 s runs at depth 1 and 3, in turns, three
+   runs each, median, min and max, with the stage split.
 The JSON summary of the kernels (with each one's bound: the larger of
 its float32 operations over the card's FP32 peak and its bytes over the
 HBM rate, see `kp_bound`, `planes_bound` and `gather_bytes`) and the
@@ -237,8 +254,15 @@ def main() -> int:
     install()  # JAX and the JAX package, before the rest of the port loads
     from galileo_sdr_sim_tpu_torch import cli
     from galileo_sdr_sim_tpu_torch.harness import (
-        CASES, FIXTURE_LLH, FIXTURE_START, KP_INSTANTIATIONS, cboc_bar, engine_bar,
-        fixture_engine, kp_digests, synthetic_kp_inputs,
+        CASES, FIXTURE_LLH, FIXTURE_START, KP_INSTANTIATIONS, PVT_SECONDS, PVT_START, AbsSumSink,
+        cboc_bar, engine_bar, fixture_engine, free_udp_ports, kp_digests, live_pickup, pvt_fix,
+        synthetic_kp_inputs,
+    )
+    from galileo_sdr_sim_tpu_torch.io.sinks import Sink
+    from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
+    from galileo_sdr_sim_tpu_torch.rinex import read_rinex_v3
+    from galileo_sdr_sim_tpu_torch.scenario import (
+        PositionProvider, ScenarioEngine, scenario_start_time,
     )
     from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
     from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
@@ -399,6 +423,8 @@ def main() -> int:
             worst[name] = max(worst[name], bar["max_abs_err"])
 
     llh = ",".join(str(v) for v in FIXTURE_LLH)
+    nav_fx = read_rinex_v3(str(NAV))
+    pvt_g0 = scenario_start_time(nav_fx, cli._parse_time(PVT_START))
     launches = dict.fromkeys((*VARIANTS, PLANES), 0)
     with tempfile.TemporaryDirectory(prefix=".smoke_", dir=ROOT) as tmp:
         # --- 5. the main paths through the CLI ----------------------------
@@ -728,6 +754,159 @@ def main() -> int:
               f"wall = {busy_us / 1e6 / wall:.2%} busy ({gpu})")
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
             print(f"  {us / 1e3:9.3f} ms  {count:5d} x  {key[:100]}")
+
+        # --- 8. the acceptance tier and the stream modes ------------------
+        def drive(argv: list, label: str) -> dict:
+            """cli.main once, the counts set to 0 just before and read just
+            after -> {instantiation: launches} (prologue and int16 views
+            under their own keys)."""
+            synth_kp_cuda.reset_counts()
+            rc = cli.main(argv)
+            counts = dict(synth_kp_cuda.launch_counts)
+            counts["int16"] = synth_kp_cuda.int16_launch_count
+            print(f"main path {label}: rc={rc} launches={counts}")
+            check(rc == 0, f"cli.main {label} returned {rc}")
+            return counts
+
+        def tally(counts: dict) -> None:
+            nonlocal launches_int16
+            for name, n in counts.items():
+                if name == "int16":
+                    launches_int16 += n
+                else:
+                    launches[name] += n
+
+        def only(counts: dict, name: str, want: int, label: str) -> None:
+            ran = {k: v for k, v in counts.items() if v and k not in (PLANES, "int16")}
+            check(ran == {name: want} and counts[PLANES] == want,
+                  f"{label}: launches {counts}, want {want} of {name} and its prologue")
+
+        pvt_epochs = len(ScenarioEngine(nav_fx, PositionProvider(llh_deg=np.array(FIXTURE_LLH)),
+                                        pvt_g0, PVT_SECONDS))
+        pvt_blocks = -(-pvt_epochs // B)
+        pvt_argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-t", PVT_START, "-l", llh,
+                    "-d", str(PVT_SECONDS)]
+        pvt_bars = {"default": 15.0, "bandlimit": 20.0}  # metres: the JAX package's bars
+        for label, options, name, per_block in (
+                ("default", [], "synth_kp_v5", 1),
+                ("bandlimit", ["--bandlimit"], "synth_kp_v5_cboc", bandlimit.OS)):
+            out = Path(tmp) / f"pvt_{label}.ishort"
+            counts = drive([*pvt_argv, "-o", str(out), *options], f"PVT {label}")
+            only(counts, name, pvt_blocks * per_block, f"PVT {label}")
+            check(label != "bandlimit" or counts["int16"] == pvt_blocks * per_block,
+                  "the band-limited PVT run did not go through the int16 view")
+            tally(counts)
+            check(out.stat().st_size == pvt_epochs * NSAMP * 4, f"PVT {label}: file size")
+            fix = pvt_fix(out, NAV)
+            print(f"PVT {label} ({pvt_epochs} epochs from {PVT_START}): {fix['n_sats']} satellites "
+                  f"{fix['fix_prns']} of {fix['prns']}, error {fix['err_m']:.3f} m, max residual "
+                  f"{fix['max_residual_m']:.3f} m, t_rx error {fix['t_rx_err_s']:.3g} s, receiver "
+                  f"{fix['seconds']:.1f} s")
+            check(fix["n_sats"] >= 5 and fix["err_m"] < pvt_bars[label],
+                  f"PVT {label}: no fix within {pvt_bars[label]} m from >= 5 satellites: {fix}")
+            check(label != "default" or fix["t_rx_err_s"] < 1e-5, f"PVT {label}: receive time {fix}")
+
+        # the pipelined default run: the depth-1 file's bytes, its launches
+        out = Path(tmp) / "pvt_depth3.ishort"
+        counts = drive([*pvt_argv, "-o", str(out), "--pipeline-depth", "3"], "PVT --pipeline-depth 3")
+        only(counts, "synth_kp_v5", pvt_blocks, "--pipeline-depth 3")
+        tally(counts)
+        same = out.read_bytes() == (Path(tmp) / "pvt_default.ishort").read_bytes()
+        print(f"--pipeline-depth 3 file byte-identical to the depth-1 file: {same}")
+        check(same, "the --pipeline-depth 3 file differs from the depth-1 file")
+
+        # checkpoint crash and resume: depth 3, a snapshot every block of 2
+        # epochs, a sink that stops the run after 3 blocks; a fresh
+        # executor resumes; drained + resumed = one depth-1 run
+        class Collect(Sink):
+            def __init__(self, stop_after: int = 0):
+                self.blocks, self.stop_after, self.synth = [], stop_after, None
+
+            def write(self, iq) -> None:
+                self.blocks.append(np.array(iq, copy=True))
+                if self.stop_after and len(self.blocks) >= self.stop_after:
+                    self.synth.stop()
+
+        def stream_bytes(sink) -> bytes:
+            return b"".join(b.tobytes() for b in sink.blocks)
+
+        ck = str(Path(tmp) / "resume.ckpt")
+        synth_kp_cuda.reset_counts()
+        whole = Collect()
+        StreamingSynthesizer(fixture_engine(NAV, 2.0), whole, device=dev, block_epochs=2).run()
+        crashed = Collect(stop_after=3)
+        crashed.synth = StreamingSynthesizer(fixture_engine(NAV, 2.0), crashed, device=dev,
+                                             block_epochs=2, pipeline_depth=3, checkpoint_path=ck,
+                                             checkpoint_every=2)
+        crashed.synth.run()
+        resumed = Collect()
+        again = StreamingSynthesizer(fixture_engine(NAV, 2.0), resumed, device=dev, block_epochs=2,
+                                     pipeline_depth=3, checkpoint_path=ck)
+        start = again._start_epoch
+        again.run()
+        counts = dict(synth_kp_cuda.launch_counts)
+        tally(counts)
+        drained = sum(b.shape[0] for b in crashed.blocks)
+        same = stream_bytes(crashed) + stream_bytes(resumed) == stream_bytes(whole)
+        print(f"checkpoint: crashed after {len(crashed.blocks)} blocks ({drained} epochs), resumed "
+              f"at epoch {start}, launches={counts}; drained + resumed byte-identical to one "
+              f"depth-1 run: {same}")
+        check(drained == 6 and start == drained + 1, "the snapshot does not hold the sink's position")
+        check(same, "crash and resume differs from the uninterrupted run")
+
+        # the device-resident drain: on-card sums equal the host drain's
+        for depth in (1, 3):
+            synth_kp_cuda.reset_counts()
+            on_card = AbsSumSink()
+            StreamingSynthesizer(fixture_engine(NAV, 3.0), on_card, device=dev, drain_host=False,
+                                 pipeline_depth=depth).run()
+            counts = dict(synth_kp_cuda.launch_counts)
+            only(counts, "synth_kp_v5", len(on_card.sums), "device-resident drain")
+            tally(counts)
+            on_host = AbsSumSink()
+            StreamingSynthesizer(fixture_engine(NAV, 3.0), on_host, device=dev,
+                                 pipeline_depth=depth).run()
+            print(f"device-resident drain depth {depth}: {len(on_card.sums)} blocks on "
+                  f"{sorted(set(on_card.kinds))}, sums equal the host drain's: "
+                  f"{on_card.sums == on_host.sums}, launches={counts}")
+            check(set(on_card.kinds) == {"cuda"}, f"device-resident sink got {on_card.kinds}")
+            check(on_card.sums == on_host.sums and len(on_card.sums) > 0,
+                  "device-resident sums differ from the host drain's")
+
+        # live mode at B = 1, depth 1: an update sent while block 1 drains
+        # reaches block 3's samples
+        synth_kp_cuda.reset_counts()
+        live = live_pickup(NAV, dev, free_udp_ports(3))
+        counts = dict(synth_kp_cuda.launch_counts)
+        tally(counts)
+        print(f"live B=1 on the card: {live}, launches={counts}")
+        check(live["ok"], f"live mode at B = 1: {live}")
+        check(counts["synth_kp_v5"] == live["blocks"] - live["fallback_blocks"],
+              f"live mode launches {counts}")
+
+        # file-sink rate, depth 1 and depth 3 in turns (written down only)
+        rates = {1: [], 3: []}
+        for depth in (1, 3, 3, 1, 1, 3):
+            e2e_out = Path(tmp) / "e2e_depth.ishort"
+            args = cli.build_torch_parser().parse_args(
+                ["-e", str(NAV), "-U", "1", "-b", "1", "-d", "30", "-t", FIXTURE_START, "-l", llh,
+                 "-o", str(e2e_out), "--pipeline-depth", str(depth)])
+            run = cli.build_run(args)
+            try:
+                t0 = time.perf_counter()
+                stats = run.synth.run()
+                wall = time.perf_counter() - t0
+            finally:
+                run.close()
+            check(e2e_out.stat().st_size == stats.samples * 4, "e2e file size")
+            e2e_out.unlink()
+            rates[depth].append(stats.samples / wall)
+            print(f"e2e depth {depth}: {stats.epochs} epochs in {wall:.3f} s = {rates[depth][-1]:.0f} "
+                  f"samples/s ({gpu})")
+            print(stats.stage_report())
+        for depth, r in rates.items():
+            print(f"e2e file sink depth {depth}, 30 s: median {np.median(r):.0f} min {min(r):.0f} "
+                  f"max {max(r):.0f} samples/s of {len(r)} runs ({gpu})")
 
     kp_source = "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu"
 

@@ -13,9 +13,11 @@ in the JAX package.  With GALILEO_COORDINATOR, GALILEO_NUM_PROCESSES and
 GALILEO_PROCESS_ID set on every process, the same command line writes the
 file cooperatively (parallel/distributed.py): NCCL and the kernel under
 `--device cuda`, one process per GPU; gloo and the plain versions under
-`--device cpu`.  The USRP sink, --trace-dir and the options listed in
-io/stream.py are not ported yet and stop with an error naming their
-ROADMAP item.
+`--device cpu`.  `--pipeline-depth N` and `--checkpoint FILE` reach the
+streaming executor as in the JAX CLI; as there, the file sink opens its
+output with "wb", so a run resumed from a checkpoint rewrites the file
+from the resumed epoch.  The USRP sink and --trace-dir are not ported
+yet and stop with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -229,15 +231,9 @@ def _refuse_unported(args) -> str | None:
         return "ERROR: distributed mode supports the file sink only (-U 1)."
     if args.disable_usrp is None:
         return ("ERROR: the USRP sink is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 5); use the file sink (-U 1).")
+                "(ROADMAP queue 1 item 1); use the file sink (-U 1).")
     if args.trace_dir:
         return ("ERROR: --trace-dir is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 6).")
-    if args.checkpoint:
-        return ("ERROR: --checkpoint is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 2).")
-    if args.pipeline_depth is not None and args.pipeline_depth > 1:
-        return ("ERROR: --pipeline-depth > 1 is not ported to the PyTorch engine yet "
                 "(ROADMAP queue 1 item 2).")
     return None
 

@@ -19,17 +19,29 @@ of the packed output; `cboc_bar` its CBOC counterpart, and
 `kp_digests` takes the SHA-256 of each kp kernel instantiation's output
 on fixed cases (`kp_digest_cases`): the same-bits guard that a rewrite
 of the kernel is held to (tests/data/torch_kp_digests.json).
+
+The acceptance checks of a port-made stream: `pvt_fix` runs the in-repo
+receiver (acquisition, tracking, I/NAV decode, least-squares PVT) on a
+file of the fixture site's scene from PVT_START; `live_pickup` drives
+interactive mode at B = 1 and measures when a UDP position update
+reaches the samples; `AbsSumSink` is a device-resident consumer for
+`drain_host=False`.
 """
 
 from __future__ import annotations
 
 import hashlib
+import socket
+import struct
+import time
 
 import numpy as np
 import torch
 
 from .cli import _parse_time
-from .constants import LUT_AMPLITUDE
+from .constants import CA_SEQ_LEN_E1, EPOCH_DT, LUT_AMPLITUDE, R2D, SAMP_RATE
+from .geodesy import llh2xyz
+from .io.sinks import Sink
 from .models.cboc import E1_CBOC
 from .models.e1 import E1_OS
 from .ops.bandlimit import polyphase_kernel
@@ -67,6 +79,13 @@ DIGEST_B = 8  # epochs a block of the digest cases
 
 FIXTURE_START = "2022/02/19,23:30:00"  # GST week 2197, 603000 s
 FIXTURE_LLH = (42.3601, -71.0589, 2.0)  # Boston, the CLI's default site
+# the PVT scene starts at tow 603018, 18 mod 30: the I/NAV schedule then
+# puts every ephemeris word type on the air within PVT_SECONDS (as the
+# JAX package's PVT scene at tow 28818 does), and start + 19 s stays
+# inside the fixture nav file's GST 597600-603600 s
+PVT_START = "2022/02/19,23:30:18"
+PVT_SECONDS = 19.0
+LIVE_MOVE = (43.0, -70.0, 50.0)  # ~110 km from the fixture site
 
 
 def fixture_engine(nav_path, duration_s: float, model=E1_OS) -> ScenarioEngine:
@@ -251,3 +270,153 @@ def kp_digests(cuda_module, name: str, nav_path, device) -> dict:
     fn = cuda_module.synth_kp_accum if f32 else cuda_module.synth_kp_packed
     return {key: kp_digest(fn(inputs, K_EPOCH))
             for key, inputs in kp_digest_cases(name, nav_path, device)}
+
+
+class AbsSumSink(Sink):
+    """A device-resident consumer: reduces each block to the int64 sum of
+    |x| over its int16 values on the device the block lies on (packed
+    int32 blocks viewed as their int16 pairs), and records where each
+    block lay ('cuda', 'cpu', or 'numpy' for a host array)."""
+
+    def __init__(self):
+        self.sums: list[int] = []
+        self.kinds: list[str] = []
+
+    def write(self, block) -> None:
+        if isinstance(block, torch.Tensor):
+            self.kinds.append(block.device.type)
+        else:
+            self.kinds.append("numpy")
+            block = torch.from_numpy(np.ascontiguousarray(block))
+        if block.dtype == torch.int32:
+            block = block.view(torch.int16)
+        self.sums.append(int(block.to(torch.int64).abs().sum()))
+
+
+def free_udp_ports(n: int) -> tuple:
+    """`n` UDP ports of 127.0.0.1 free at the time of the call."""
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return tuple(s.getsockname()[1] for s in socks)
+    finally:
+        for s in socks:
+            s.close()
+
+
+def pvt_fix(iq_path, nav_path, start: str = PVT_START) -> dict:
+    """The in-repo receiver (rx_pvt.receiver_fix) on the int16 I/Q file at
+    `iq_path`, a static scene at FIXTURE_LLH from `start`, given the
+    scene's PRNs as candidates (only which satellites to search: ranges,
+    ephemerides and time come from the samples alone) -> {'prns' (the
+    candidates), 'fix_prns', 'n_sats', 'err_m' (distance from the truth),
+    'max_residual_m', 't_rx_err_s' (against the transmitter's epoch clock
+    at the measurement sample, g0 + 2 dt + n/fs), 'seconds' (the
+    receiver's wall time)}; without a fix n_sats is 0 and the errors
+    infinite."""
+    from .rx_pvt import receiver_fix
+    from .rx_track import iq_to_complex
+
+    nav = read_rinex_v3(nav_path)
+    g0 = scenario_start_time(nav, _parse_time(start))
+    scene = ScenarioEngine(nav, PositionProvider(llh_deg=np.array(FIXTURE_LLH)), g0, 1.0)
+    prns = sorted(int(p) for p in next(scene.batches(8)).prn if p > 0)
+    x16 = np.fromfile(iq_path, dtype=np.int16)
+    t0 = time.perf_counter()
+    fix = receiver_fix(iq_to_complex(x16), prn_candidates=prns)
+    out = {"prns": prns, "fix_prns": [], "n_sats": 0, "err_m": float("inf"),
+           "max_residual_m": float("inf"), "t_rx_err_s": float("inf"),
+           "seconds": time.perf_counter() - t0}
+    if fix is None:
+        return out
+    sol = fix.solution
+    truth = llh2xyz(np.array([FIXTURE_LLH[0] / R2D, FIXTURE_LLH[1] / R2D, FIXTURE_LLH[2]]))
+    n_meas = 0.5 * (x16.size // 2)  # receiver_fix's measurement sample
+    out.update(
+        fix_prns=[int(p) for p in sol.prns], n_sats=int(sol.n_sats),
+        err_m=float(np.linalg.norm(sol.xyz - truth)),
+        max_residual_m=float(np.max(np.abs(sol.residuals))),
+        t_rx_err_s=float(abs(sol.t_rx - (g0.sec + 2 * EPOCH_DT + n_meas / SAMP_RATE))),
+    )
+    return out
+
+
+def live_pickup(nav_path, device, ports: tuple) -> dict:
+    """Interactive mode at B = 1 through the port's UdpServers (on
+    `ports`: position, bit relay, dt) and streaming executor at depth 1,
+    0.5 s of the fixture scene on `device`: while block 1 drains, a
+    position update ~110 km away (LIVE_MOVE) is sent to ports[0].  The
+    reference's contract (galileo-sdr.cpp:443, a 0.2 s FIFO) is that it
+    reaches the emitted samples of block 3 at the latest.  PCPS
+    acquisition of the first channel's PRN reads the transmitted code
+    phase from the samples -> {'blocks', 'prn', 'metric1' and
+    'err1_chips' (block 1 against its transmitted code phase),
+    'moved3_chips' (block 3's transmitted code phase against the
+    unmoved scene's), 'rms3' (block 3's samples: the move's Doppler jump
+    sends it through the direct fallback), 'fallback_blocks',
+    'metric4', 'err4_chips' and 'from_stay4_chips' (block 4 against the
+    moved and the unmoved code phase), 'ok' (the reference test's bars:
+    metrics > 8, errors < 1 chip, moves > 20 chips, rms < 2000)}."""
+    from .io.stream import StreamingSynthesizer
+    from .io.udp import UdpServers
+    from .rx_track import acquire, iq_to_complex
+
+    nav = read_rinex_v3(nav_path)
+    g0 = scenario_start_time(nav, _parse_time(FIXTURE_START))
+    moved = np.array(LIVE_MOVE)
+    servers = UdpServers(np.array(FIXTURE_LLH), ports=ports).start()
+    blocks, batches = [], []
+
+    class Collect(Sink):
+        def write(self, iq) -> None:
+            blocks.append(np.array(iq, copy=True).reshape(-1))
+
+    def during_block_1(batch, stats) -> None:
+        batches.append(batch)
+        if stats.epochs != 1:
+            return
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+            sock.sendto(struct.pack("<3d", *moved), ("127.0.0.1", ports[0]))
+        deadline = time.monotonic() + 5.0
+        while not np.allclose(servers.state.llh, moved):
+            if time.monotonic() > deadline:
+                raise RuntimeError("the UDP position update was not received")
+            time.sleep(0.01)
+
+    try:
+        engine = ScenarioEngine(nav, PositionProvider(live=lambda: servers.state.llh), g0, 0.5)
+        stats = StreamingSynthesizer(engine, Collect(), device=device, block_epochs=1,
+                                     status_cb=during_block_1).run()
+    finally:
+        servers.stop()
+    stay = list(ScenarioEngine(nav, PositionProvider(llh_deg=np.array(FIXTURE_LLH)), g0, 0.5).epochs())
+    ch = int(np.argmax(batches[0].prn > 0))
+    prn = int(batches[0].prn[ch])
+
+    def circ(a: float, b: float) -> float:
+        d = (a - b) % CA_SEQ_LEN_E1
+        return float(min(d, CA_SEQ_LEN_E1 - d))
+
+    def sent(k: int) -> float:
+        return float(batches[k].code_phase0[0, ch]) % CA_SEQ_LEN_E1
+
+    def unmoved(k: int) -> float:
+        return float(stay[k].code_phase0[ch]) % CA_SEQ_LEN_E1
+
+    a1 = acquire(iq_to_complex(blocks[0]), prn)
+    a4 = acquire(iq_to_complex(blocks[3]), prn)
+    out = {
+        "blocks": len(blocks), "prn": prn,
+        "metric1": float(a1.metric), "err1_chips": circ(a1.code_phase, sent(0)),
+        "moved3_chips": circ(sent(2), unmoved(2)),
+        "rms3": float(np.sqrt(np.mean(blocks[2].astype(np.float64) ** 2))),
+        "fallback_blocks": stats.timer.counts.get("fallback_direct", 0),
+        "metric4": float(a4.metric), "err4_chips": circ(a4.code_phase, sent(3)),
+        "from_stay4_chips": circ(a4.code_phase, unmoved(3)),
+    }
+    out["ok"] = (out["blocks"] >= 4 and out["metric1"] > 8.0 and out["err1_chips"] < 1.0
+                 and out["moved3_chips"] > 20.0 and out["rms3"] < 2000.0
+                 and out["metric4"] > 8.0 and out["err4_chips"] < 1.0
+                 and out["from_stay4_chips"] > 20.0)
+    return out

@@ -1,11 +1,18 @@
 """Streaming executor of the PyTorch port: scenario blocks -> device
-synthesis -> host sink.
+synthesis -> sink.
 
-Port of galileo_sdr_sim_tpu/io/stream.py at pipeline depth 1: block k+1
-is prepared and dispatched, then block k is drained, so the device
-computes k+1 while the host writes k.  On a GPU each block's result is
-copied into a pinned host buffer on the device's stream right after the
-kernel is enqueued; the drain waits for that copy's event.
+Port of galileo_sdr_sim_tpu/io/stream.py.  At pipeline depth 1 (the
+default) one thread prepares and dispatches block k+1, then drains
+block k, so the device computes k+1 while the host writes k.  At depth
+>= 2 a producer thread prepares and dispatches up to `pipeline_depth`
+blocks ahead of the draining thread, through a bounded queue.  On a GPU
+each block's result is copied into a pinned host buffer on the stream
+its kernel ran on, right after the kernel is enqueued; the drain waits
+for that copy's event.  With `drain_host=False` the sink receives the
+device tensor itself (no copy to the host).  With a `checkpoint_path`
+the scenario state at the last drained epoch is saved every
+`checkpoint_every` epochs (checkpoint.py), and a run whose snapshot
+exists resumes after it.
 
 Routing per block, as the JAX executor does:
 * the factorized kp engine (ops/synth_kp_cuda.synth_kp_packed: the CUDA
@@ -26,14 +33,19 @@ Routing per block, as the JAX executor does:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue
+import threading
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
+from ..checkpoint import load_state, save_state
 from ..constants import NUM_IQ_SAMPLES
 from ..ops.bandlimit import initial_state, synth_block_cboc_bandlimited
 from ..ops.synth import TILE, prepare_device_inputs, synth_block
@@ -80,10 +92,6 @@ class StreamStats:
         return self.timer.report() if self.timer else ""
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch engine yet ({item})")
-
-
 class _Fetch:
     """A device block on its way to the host: on a GPU, a pinned host
     buffer filled by a non-blocking copy and the event that marks its
@@ -120,17 +128,12 @@ class StreamingSynthesizer:
         nsamples: int = NUM_IQ_SAMPLES,
         status_cb: Callable[[EpochStateTable, StreamStats], None] | None = None,
         checkpoint_path: str | None = None,
+        checkpoint_every: int = 300,
         apply_gain: bool = False,
         pipeline_depth: int | None = None,
         drain_host: bool = True,
         bandlimit: bool = False,
     ):
-        if pipeline_depth is not None and pipeline_depth > 1:
-            raise _not_ported("pipeline_depth > 1", "ROADMAP queue 1 item 2")
-        if checkpoint_path is not None:
-            raise _not_ported("checkpointing", "ROADMAP queue 1 item 2")
-        if not drain_host:
-            raise _not_ported("drain_host=False", "ROADMAP queue 1 item 2")
         if synth_engine not in ("auto", "kp", "kp_pallas", "direct"):
             raise ValueError(f"unknown synthesis engine {synth_engine!r}")
         if mode not in ("float", "lut512"):
@@ -169,20 +172,50 @@ class StreamingSynthesizer:
         self.nsamples = nsamples  # != NUM_IQ_SAMPLES only in tests
         self.status_cb = status_cb
         self.stats = StreamStats(timer=Timer())
+        # device blocks in flight ahead of the sink: depth 1 is the
+        # single-thread prepare(k+1)-then-drain(k) loop, in which a live
+        # position update lands in the next prepared epoch; depth >= 2
+        # adds a producer thread with bounded-queue backpressure
+        self.pipeline_depth = max(1, pipeline_depth or 1)
+        # drain_host=False: the sink receives each block as a tensor on
+        # `device` (no copy to the host); fallback blocks stay numpy
+        self.drain_host = drain_host
+        # serializes scenario stepping (the producer thread) against the
+        # checkpoint snapshots taken on the draining thread
+        self._engine_lock = threading.Lock()
         self._stop = False
         self._code_cache: dict = {}
         self._direct_cache: dict = {}  # the direct engine's code slabs
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every  # epochs between snapshots
+        self._start_epoch = 1
+        if checkpoint_path is not None:
+            # a snapshot rewinds to the last DRAINED epoch while the
+            # producer runs up to pipeline_depth + 1 blocks ahead: the
+            # engine's replay ring must cover those in-flight epochs
+            engine._replay_keep = (self.pipeline_depth + 2) * block_epochs
+            if Path(checkpoint_path).with_suffix(".json").exists():
+                # under bandlimit the filter's overlap state restarts at
+                # zeros here, as in the JAX executor (docs/bandlimit.md)
+                self._start_epoch = load_state(engine, checkpoint_path) + 1
 
     def stop(self) -> None:
         self._stop = True
 
+    def _hand_over(self, block: torch.Tensor):
+        """A block as it leaves the producer: on its way to the host
+        (`_Fetch`), or the device tensor itself when the sink takes it."""
+        return _Fetch(block) if self.drain_host else block
+
     def _device_blocks(self) -> Iterator[tuple[object, object, int]]:
-        gen = self.engine.batches(self.block_epochs)
+        gen = self.engine.batches(self.block_epochs, start=self._start_epoch)
         while True:
             # scenario stepping (host float64 geometry and nav bits) has
-            # its own stage: the JAX executor leaves it untimed
+            # its own stage: the JAX executor leaves it untimed.  It runs
+            # under the engine lock, so a snapshot sees committed state
             with self.stats.timer.section("scenario"):
-                batch = next(gen, None)
+                with self._engine_lock:
+                    batch = next(gen, None)
             if batch is None:
                 return
             n_real = batch.f_code.shape[0]
@@ -202,7 +235,7 @@ class StreamingSynthesizer:
                         apply_gain=self.apply_gain,
                         device=self.device,
                     )
-                    fut = _Fetch(out)
+                    fut = self._hand_over(out)
                 elif use_kp and not fallback:
                     inputs = prepare_kp_inputs(
                         batch,
@@ -212,7 +245,7 @@ class StreamingSynthesizer:
                         device=self.device,
                         apply_gain=self.apply_gain,
                     )
-                    fut = _Fetch(synth_kp_packed(inputs, n_k=self.nsamples // P_GRID))
+                    fut = self._hand_over(synth_kp_packed(inputs, n_k=self.nsamples // P_GRID))
                 elif fallback:
                     # an epoch's code Doppler left the kp envelope (a live
                     # position teleport or a reallocation transition):
@@ -243,34 +276,119 @@ class StreamingSynthesizer:
                         code_cache=self._direct_cache,
                         device=self.device,
                     )
-                    fut = _Fetch(synth_block(inputs, tile=self.tile, mode=self.mode))
+                    fut = self._hand_over(synth_block(inputs, tile=self.tile, mode=self.mode))
             yield batch, fut, n_real
 
     def run(self) -> StreamStats:
-        """Dispatch block k+1, then drain block k, until the scenario ends
-        or stop() is called."""
+        """Drain the blocks in order until the scenario ends or stop() is
+        called: at depth 1 dispatch block k+1, then drain block k, on this
+        thread; at depth >= 2 a producer thread dispatches up to
+        `pipeline_depth` blocks ahead.  The stage timers run on both
+        threads (disjoint section names), so their sum can exceed the
+        wall time."""
         t0 = time.perf_counter()
-        pending = None
-        for item in self._device_blocks():
+        if self.pipeline_depth == 1:
+            pending = None
+            for item in self._device_blocks():
+                if pending is not None:
+                    self._drain(*pending)
+                pending = item
+                if self._stop:
+                    break
             if pending is not None:
                 self._drain(*pending)
-            pending = item
-            if self._stop:
-                break
-        if pending is not None:
-            self._drain(*pending)
+        else:
+            self._run_threaded()
         self.stats.wall_s = time.perf_counter() - t0
         return self.stats
 
+    def _run_threaded(self) -> None:
+        q: queue.Queue = queue.Queue(maxsize=self.pipeline_depth)
+        err: list[BaseException] = []
+        done = threading.Event()
+        # a new thread starts on device 0: keep the producer's kernels,
+        # copies and events on this run's device
+        on_device = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                     else contextlib.nullcontext())
+
+        def produce() -> None:
+            # put() polls with a short timeout only so that stop() can end
+            # a wait on a full queue; 2 ms bounds the dead time a handoff
+            # can add in steady state
+            try:
+                with on_device:
+                    for item in self._device_blocks():
+                        while not self._stop:
+                            try:
+                                q.put(item, timeout=0.002)
+                                break
+                            except queue.Full:
+                                continue
+                        if self._stop:
+                            return
+            except BaseException as e:  # re-raised on the draining thread
+                err.append(e)
+            finally:
+                # completion travels beside the queue: an Event never
+                # blocks, where a sentinel would need a free slot
+                done.set()
+
+        th = threading.Thread(target=produce, name="stream-producer")
+        th.start()
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=0.01)
+                except queue.Empty:
+                    if err or (done.is_set() and q.empty()):
+                        break
+                    continue
+                self._drain(*item)
+                if self._stop:
+                    break
+        finally:
+            self._stop = True
+            th.join()
+        if err:
+            raise err[0]
+
     def _drain(self, batch, fut, n_real: int) -> None:
-        with self.stats.timer.section("device_wait+fetch"):
-            host = fut.result() if isinstance(fut, _Fetch) else fut
-            if host.ndim == 3:  # packed int32 I/Q -> free int16 view
-                host = packed_to_iq16(host)
-            host = host[:n_real, : 2 * self.nsamples]
-        with self.stats.timer.section("sink_write"):
-            self.sink.write(host)
+        if self.drain_host:
+            with self.stats.timer.section("device_wait+fetch"):
+                host = fut.result() if isinstance(fut, _Fetch) else fut
+                if host.ndim == 3:  # packed int32 I/Q -> free int16 view
+                    host = packed_to_iq16(host)
+                host = host[:n_real, : 2 * self.nsamples]
+            with self.stats.timer.section("sink_write"):
+                self.sink.write(host)
+        else:
+            # the device-resident sink decides its own synchronization
+            # point.  kp blocks keep the packed int32 (B, n_k, 1300)
+            # layout, the band-limited and direct ones (B, 2 nsamples)
+            # int16; a block is sliced only when it is partial
+            with self.stats.timer.section("sink_write"):
+                shape = tuple(fut.shape)
+                if len(shape) == 3:
+                    self.sink.write(fut if shape[0] == n_real else fut[:n_real])
+                elif shape == (n_real, 2 * self.nsamples):
+                    self.sink.write(fut)
+                else:
+                    self.sink.write(fut[:n_real, : 2 * self.nsamples])
         self.stats.epochs += n_real
         self.stats.samples += n_real * self.nsamples
         if self.status_cb is not None:
             self.status_cb(batch, self.stats)
+        if (
+            self.checkpoint_path is not None
+            and self.stats.epochs % self.checkpoint_every < n_real
+        ):
+            # under the engine lock: the producer must not step the
+            # scenario mid-snapshot.  drained_iumd rewinds the snapshot to
+            # what the sink has received, so a resume replays the blocks
+            # still in flight instead of skipping them
+            with self._engine_lock:
+                save_state(
+                    self.engine,
+                    self.checkpoint_path,
+                    drained_iumd=self._start_epoch - 1 + self.stats.epochs,
+                )

@@ -32,8 +32,8 @@ import pytest
 import torch
 
 from galileo_sdr_sim_tpu_torch.harness import (
-    CASES, KP_INSTANTIATIONS, bandlimit_bar, cboc_bar, engine_bar, fixture_engine, kp_digests,
-    synthetic_kp_inputs,
+    CASES, KP_INSTANTIATIONS, AbsSumSink, bandlimit_bar, cboc_bar, engine_bar, fixture_engine,
+    kp_digests, synthetic_kp_inputs,
 )
 from galileo_sdr_sim_tpu_torch.io.sinks import Sink
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
@@ -131,6 +131,34 @@ def test_stream_on_the_card_goes_through_the_kernel(gpu):
     assert got.size == 15 * 2 * 260000
     bar = engine_bar(got, ref)
     assert bar["ok"], bar
+
+
+def test_pipelined_stream_on_the_card(gpu):
+    """Depth 3: the producer thread's kernels, copies and events stay on
+    the run's device; the stream equals the depth-1 stream byte for byte,
+    with the same launches."""
+    runs = {}
+    for depth in (1, 3):
+        before = synth_kp_cuda.launch_count
+        sink = _Collect()
+        stats = StreamingSynthesizer(fixture_engine(NAV, 1.6), sink, device=gpu,
+                                     pipeline_depth=depth).run()
+        assert stats.epochs == 15
+        runs[depth] = (sink.stream(), synth_kp_cuda.launch_count - before)
+    assert runs[3][1] == runs[1][1] == 2
+    np.testing.assert_array_equal(runs[3][0], runs[1][0])
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_device_resident_drain_on_the_card(gpu, depth):
+    """drain_host=False hands the sink CUDA tensors; its on-card sums of
+    |x| equal the host drain's block for block."""
+    dev, host = AbsSumSink(), AbsSumSink()
+    StreamingSynthesizer(fixture_engine(NAV, 1.6), dev, device=gpu, drain_host=False,
+                         pipeline_depth=depth).run()
+    StreamingSynthesizer(fixture_engine(NAV, 1.6), host, device=gpu).run()
+    assert dev.kinds == ["cuda", "cuda"] and host.kinds == ["numpy", "numpy"]
+    assert dev.sums == host.sums and all(v > 0 for v in dev.sums)
 
 
 @pytest.mark.parametrize("mode", ["lut512", "float"])

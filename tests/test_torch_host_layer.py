@@ -11,24 +11,37 @@ sine-BOC model (two 30 s I/NAV subframes, which between them carry every
 word type, the fec2 Reed-Solomon pages included), and 30 s of CBOC,
 without ionosphere, with the dummy almanac, and with a user-motion
 trajectory that jumps (a channel reallocation at the 30 s boundary and a
-block outside the kp engine's code-Doppler envelope)."""
+block outside the kp engine's code-Doppler envelope).  The checkpoint
+copy writes the same snapshot as its original, and a snapshot the JAX
+package wrote resumes in the port; the receiver's decode and PVT copies
+(`rx`, `rx_pvt`) give their originals' results on pages of the fixture
+nav file made by the port's I/NAV encoder, with seeded symbol errors,
+and on seeded pseudoranges."""
 
 import dataclasses
 
 import numpy as np
 import pytest
 
+from galileo_sdr_sim_tpu import checkpoint as jckpt
 from galileo_sdr_sim_tpu import cli as jcli
 from galileo_sdr_sim_tpu import noise as jnoise
+from galileo_sdr_sim_tpu import rx as jrxd
+from galileo_sdr_sim_tpu import rx_pvt as jpvt
 from galileo_sdr_sim_tpu import rx_track as jrx
 from galileo_sdr_sim_tpu import scenario as jscn
 from galileo_sdr_sim_tpu.models.cboc import E1_CBOC as J_CBOC
 from galileo_sdr_sim_tpu.models.e1 import E1_OS as J_E1
 from galileo_sdr_sim_tpu.rinex import read_rinex_v3 as j_read_rinex
+from galileo_sdr_sim_tpu_torch import checkpoint as tckpt
 from galileo_sdr_sim_tpu_torch import cli as tcli
+from galileo_sdr_sim_tpu_torch import inav as tinav
 from galileo_sdr_sim_tpu_torch import noise as tnoise
+from galileo_sdr_sim_tpu_torch import rx as trxd
+from galileo_sdr_sim_tpu_torch import rx_pvt as tpvt
 from galileo_sdr_sim_tpu_torch import rx_track as trx
 from galileo_sdr_sim_tpu_torch import scenario as tscn
+from galileo_sdr_sim_tpu_torch.observables import compute_range
 from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC as T_CBOC
 from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS as T_E1
 from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
@@ -215,3 +228,137 @@ def test_native_fifo_refuses_a_missing_source(tmp_path, monkeypatch):
     monkeypatch.setattr(native_fifo, "_SOURCE", tmp_path / "iqring.cpp")
     with pytest.raises(RuntimeError, match="source not found"):
         native_fifo._build_library()
+
+
+# --- checkpoint ---------------------------------------------------------------
+
+
+def _step(engine, blocks: int) -> None:
+    gen = engine.batches(8)
+    for _ in range(blocks):
+        next(gen)
+
+
+@pytest.mark.parametrize("case, blocks, drained", [
+    ("e1", 3, None), ("e1", 3, 8), ("cboc", 2, 8), ("motion_jump", 20, 144),
+])
+def test_checkpoint_snapshots_match(case, blocks, drained, tmp_path):
+    """Each package's save_state on its own engine after the same blocks
+    (with `drained`, rewound to that epoch through the replay ring, as a
+    pipelined run's snapshot is) writes the same JSON and npz arrays."""
+    engines = _engines(case, tmp_path)
+    for engine, ckpt, name in zip(engines, (jckpt, tckpt), ("jax", "port")):
+        engine._replay_keep = 32
+        _step(engine, blocks)
+        ckpt.save_state(engine, tmp_path / name, drained_iumd=drained)
+    assert (tmp_path / "port.json").read_text() == (tmp_path / "jax.json").read_text()
+    with np.load(tmp_path / "jax.npz") as a, np.load(tmp_path / "port.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert drained is None or "pending_prn" in a.files
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype and np.array_equal(a[key], b[key]), key
+
+
+def test_jax_snapshot_resumes_in_the_port(tmp_path):
+    """A snapshot the JAX package wrote (rewound to epoch 16 of 24 stepped)
+    loads into a fresh port engine, which goes on with the tables of an
+    uninterrupted JAX engine from epoch 17."""
+    j_engine, t_engine = _engines("e1", tmp_path)
+    j_engine._replay_keep = 32
+    _step(j_engine, 3)
+    jckpt.save_state(j_engine, tmp_path / "ck", drained_iumd=16)
+    assert tckpt.load_state(t_engine, tmp_path / "ck") == 16
+    whole = _engines("e1", tmp_path)[0].batches(8)
+    _step_gen = [next(whole) for _ in range(2)]
+    assert sum(b.f_code.shape[0] for b in _step_gen) == 16
+    fields = [f.name for f in dataclasses.fields(tscn.EpochBatch)]
+    for i, bt in zip(range(5), t_engine.batches(8, start=17)):
+        bj = next(whole)
+        for name in fields:
+            a, b = getattr(bt, name), getattr(bj, name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (i, name)
+
+
+# --- the receiver's decode and PVT stages -------------------------------------
+
+
+def _fixture_ephemerides():
+    """(nav, g0, {prn: ephemeris}) of the fixture scene's visible PRNs."""
+    nav = t_read_rinex(str(NAV))
+    g0 = tscn.scenario_start_time(nav, tcli._parse_time(START))
+    batch = next(tscn.ScenarioEngine(nav, tscn.PositionProvider(llh_deg=np.array(LLH)), g0, 1.0)
+                 .batches(8))
+    prns = [int(p) for p in batch.prn if p > 0]
+    return nav, g0, {prn: nav.eph[prn - 1][nav.epoch_match(prn - 1, g0)] for prn in prns}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_viterbi_decode_matches(seed):
+    rng = np.random.default_rng(seed)
+    bits = np.concatenate([rng.integers(0, 2, 114, dtype=np.uint8), np.zeros(6, np.uint8)])
+    coded = tinav.conv_encode(bits)
+    coded[rng.choice(coded.size, 4, replace=False)] ^= 1
+    noise = rng.integers(0, 2, 240, dtype=np.uint8)
+    for symbols in (coded, noise):
+        got, want = trxd.viterbi_decode(symbols, 120), jrxd.viterbi_decode(symbols, 120)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(trxd.viterbi_decode(coded, 120), bits)
+
+
+@pytest.mark.parametrize("word_type", [0, 1, 2, 3, 4, 5, 6])
+def test_page_decode_and_word_parse_match(word_type):
+    """A page pair of PRN 10 from the port's I/NAV encoder, framed, with
+    two seeded symbol errors in each half page: both decoders give the
+    same page and CRC verdict, both parsers the same fields."""
+    nav, g0, ephs = _fixture_ephemerides()
+    even, odd = tinav.generate_page_pair(g0, ephs[10], nav.iono, word_type)
+    symbols = np.concatenate([tinav.frame_half_page(even), tinav.frame_half_page(odd)])
+    rng = np.random.default_rng(word_type)
+    for half in (0, 250):
+        symbols[half + 10 + rng.choice(240, 2, replace=False)] ^= 1
+    got, want = trxd.decode_page_pair(symbols), jrxd.decode_page_pair(symbols)
+    for f in dataclasses.fields(jrxd.DecodedPage):
+        assert np.array_equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert got.crc_ok and got.word_type == word_type
+    fields = tpvt.parse_word(tpvt.page_content(got))
+    assert fields == jpvt.parse_word(jpvt.page_content(want))
+    assert fields["word_type"] == word_type
+
+
+def test_assemble_ephemeris_matches():
+    nav, g0, ephs = _fixture_ephemerides()
+    for prn, eph in ephs.items():
+        words = {}
+        for wt in (1, 2, 3, 4, 5):
+            even, odd = tinav.generate_page_pair(g0, eph, nav.iono, wt)
+            page = trxd.decode_page_pair(
+                np.concatenate([tinav.frame_half_page(even), tinav.frame_half_page(odd)]))
+            words[wt] = tpvt.parse_word(tpvt.page_content(page))
+        got = tpvt.assemble_ephemeris(words, g0.week, prn)
+        want = jpvt.assemble_ephemeris(words, g0.week, prn)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), prn
+        assert got.svid == prn and abs(got.sqrta - eph.sqrta) <= 2.0**-19
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_solve_pvt_matches(seed):
+    """Pseudoranges of the fixture scene's satellites at the fixture site
+    (the port's forward model) with seeded metre-level errors: both
+    solvers give the same solution, near the truth."""
+    from galileo_sdr_sim_tpu_torch.constants import D2R, SPEED_OF_LIGHT
+    from galileo_sdr_sim_tpu_torch.geodesy import llh2xyz
+    from galileo_sdr_sim_tpu_torch.rinex import EphArrays
+
+    nav, g0, ephs = _fixture_ephemerides()
+    eph_list = list(ephs.values())
+    truth = llh2xyz(np.array([LLH[0] * D2R, LLH[1] * D2R, LLH[2]]))
+    t_rx = g0.sec + 5.0
+    rho = compute_range(EphArrays.from_records(eph_list), nav.iono, g0.week,
+                        np.full(len(eph_list), t_rx), truth).range
+    rng = np.random.default_rng(seed)
+    t_tx = t_rx - (rho + rng.normal(0.0, 2.0, rho.size)) / SPEED_OF_LIGHT
+    got = tpvt.solve_pvt(eph_list, t_tx, nav.iono, g0.week)
+    want = jpvt.solve_pvt(eph_list, t_tx, nav.iono, g0.week)
+    assert np.array_equal(got.xyz, want.xyz) and got.t_rx == want.t_rx
+    assert np.array_equal(got.residuals, want.residuals) and got.prns == want.prns
+    assert np.linalg.norm(got.xyz - truth) < 30.0

@@ -109,6 +109,43 @@ def test_cli_main_on_cpu_matches_jax_stream(tmp_path):
     assert bar["ok"], bar
 
 
+def test_cli_checkpoint_and_pipeline_depth_match_the_jax_cli(tmp_path, monkeypatch):
+    """`--checkpoint FILE --pipeline-depth 3` reach the executor.  From one
+    snapshot after the first 8 of 15 epochs, the port's CLI (--device
+    cpu) and the JAX package's CLI each resume at epoch 9 and rewrite
+    their output file from there ("wb"): the port's file is the tail of
+    its uninterrupted depth-1 file byte for byte, and meets the engine
+    bar against the JAX CLI's file."""
+    from galileo_sdr_sim_tpu.cli import main as jax_main
+    from galileo_sdr_sim_tpu_torch.checkpoint import save_state
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jax_cache"))
+    um = tmp_path / "static.csv"
+    um.write_text(",".join(str(v) for v in LLH) + "\n")
+    base = ["-e", str(NAV), "-U", "1", "-b", "1", "-d", "1.6", "-t", START,
+            "-l", ",".join(str(v) for v in LLH), "-u", str(um)]
+    full = tmp_path / "full.ishort"
+    assert cli.main([*base, "-o", str(full), "--device", "cpu"]) == 0
+    engine, servers = cli.build_engine(cli.build_torch_parser().parse_args([*base, "--device", "cpu"]))
+    assert servers is None
+    engine._replay_keep = 16  # as the executor sets it: the rewind below
+    next(engine.batches(8))
+    for name in ("port", "jax"):
+        save_state(engine, tmp_path / f"{name}.ckpt", drained_iumd=8)
+    port, jax_out = tmp_path / "port.ishort", tmp_path / "jax.ishort"
+    port.write_bytes(b"\xff" * 64)  # rewritten, not appended to
+    resume = ["--pipeline-depth", "3", "--checkpoint"]
+    assert cli.main([*base, "-o", str(port), "--device", "cpu", *resume,
+                     str(tmp_path / "port.ckpt")]) == 0
+    assert jax_main([*base, "-o", str(jax_out), *resume, str(tmp_path / "jax.ckpt")]) == 0
+    got, whole = np.fromfile(port, dtype=np.int16), np.fromfile(full, dtype=np.int16)
+    n = 2 * 260000
+    assert whole.size == 15 * n and got.size == 7 * n
+    np.testing.assert_array_equal(got, whole[8 * n:])
+    bar = engine_bar(got, np.fromfile(jax_out, dtype=np.int16))
+    assert bar["ok"], bar
+
+
 def test_stream_kp_path_and_stages():
     got, stats = _torch_stream(fixture_engine(0.5), nsamples=10400)
     ref = _jax_stream(fixture_engine(0.5), synth_engine="kp", nsamples=10400)
@@ -132,14 +169,6 @@ def test_stream_out_of_envelope_epoch_goes_direct():
     assert "host_prep+dispatch" not in stats.timer.sections
     bar = engine_bar(got, ref)
     assert bar["ok"], bar
-
-
-@pytest.mark.parametrize("option", [
-    {"pipeline_depth": 2}, {"checkpoint_path": "x.ckpt"}, {"drain_host": False},
-])
-def test_unported_stream_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingSynthesizer(fixture_engine(0.3), CollectSink(), device=CPU, **option)
 
 
 # --- CBOC, gain and the band-limited stream -------------------------------
@@ -284,17 +313,15 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("options, item", [
-    (["-U", "1", "--checkpoint", "run.ckpt"], 2),
-    (["-U", "1", "--pipeline-depth", "2"], 2),
-    ([], 5),  # the USRP sink: no -U
-    (["-U", "1", "--trace-dir", "trace"], 6),
+    ([], 1),  # the USRP sink: no -U
+    (["-U", "1", "--trace-dir", "trace"], 2),
 ])
 def test_cli_refusal_is_one_error_line(tmp_path, capsys, options, item):
     """An option that is not ported stops the CLI with one ERROR line that
     names its item of ROADMAP.md's queue 1, exit code 1 and no traceback,
     before anything is written."""
     out = tmp_path / "x.ishort"
-    options = [str(tmp_path / o) if o in ("run.ckpt", "trace") else o for o in options]
+    options = [str(tmp_path / o) if o == "trace" else o for o in options]
     rc = cli.main(["-e", str(NAV), "-t", START, "-d", "0.3", "-o", str(out), *options])
     printed, err = capsys.readouterr()
     assert rc == 1
