@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int P_GRID = 1300;
@@ -393,19 +395,54 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
                              w_minus);
 }
 
+// Raise the dynamic shared memory an instantiation may use to `smem`
+// bytes on the current device, once: the largest size granted so far is
+// kept per device, so that a launch calls cudaFuncSetAttribute only when
+// it needs more than any launch before it.
+constexpr int MAX_DEVICES = 64;
+
 template <bool CBOC, bool GAIN, bool F32>
-int launch(const void* const* ops, const void* planes, void* out, float alpha, float beta,
-           int B, int C, int n_k, int k_chunk, cudaStream_t stream) {
+cudaError_t grant_smem(size_t smem) {
+  static std::atomic<int> granted[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool kept = dev >= 0 && dev < MAX_DEVICES;
+  if (kept && granted[dev].load(std::memory_order_relaxed) >= (int)smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(synth_kp_v5_kernel<CBOC, GAIN, F32>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && kept) granted[dev].store((int)smem, std::memory_order_relaxed);
+  return err;
+}
+
+// the operands of one call, as the entry points take them
+struct Operands {
+  const float *cp0, *two_a, *mu, *g0;
+  const int* o;
+  const float *r, *carr0, *fc, *fc_k;
+  const int8_t* vpack_rs;
+  const int *sym_bits, *pil_bits;
+  const float* chan_gain;  // null without gain
+};
+
+int launch_planes(const Operands& a, unsigned char* planes, int B, int C, int n_k, int t_rs,
+                  cudaStream_t stream) {
+  const dim3 grid(P_TILES, B, C);
+  kp_planes_kernel<<<grid, P_TILE, 0, stream>>>(a.cp0, a.two_a, a.mu, a.g0, a.o, a.r, a.carr0,
+                                                a.fc, a.fc_k, a.vpack_rs, planes, B, C, n_k,
+                                                t_rs);
+  return (int)cudaGetLastError();
+}
+
+template <bool CBOC, bool GAIN, bool F32>
+int launch_main(const Operands& a, const unsigned char* planes, void* out, float alpha,
+                float beta, int B, int C, int n_k, int k_chunk, cudaStream_t stream) {
   const size_t smem = smem_bytes(C, k_chunk);
-  cudaError_t err = cudaFuncSetAttribute(synth_kp_v5_kernel<CBOC, GAIN, F32>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const cudaError_t err = grant_smem<CBOC, GAIN, F32>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(P_TILES, B, (n_k + k_chunk - 1) / k_chunk);
   synth_kp_v5_kernel<CBOC, GAIN, F32><<<grid, P_TILE, smem, stream>>>(
-      static_cast<const float*>(ops[0]), static_cast<const int*>(ops[1]),
-      static_cast<const int*>(ops[2]), static_cast<const float*>(ops[3]),
-      static_cast<const unsigned char*>(planes), out, alpha, beta, B, C, n_k, k_chunk);
+      a.mu, a.sym_bits, a.pil_bits, a.chan_gain, planes, out, alpha, beta, B, C, n_k, k_chunk);
   return (int)cudaGetLastError();
 }
 
@@ -418,45 +455,58 @@ extern "C" {
 size_t synth_kp_v5_smem_bytes(int C, int k_chunk) { return smem_bytes(C, k_chunk); }
 size_t synth_kp_v5_planes_bytes(int B, int C, int n_k) { return planes_bytes(B, C, n_k); }
 
-// Launch the prologue on `stream`: fill `planes` (synth_kp_v5_planes_bytes
-// bytes, 16-byte aligned) from the (B, C) operands and the (C, 160, t_rs)
-// window table.  Returns cudaGetLastError() (0 = launched).
+// Launch the prologue alone on `stream`: fill `planes`
+// (synth_kp_v5_planes_bytes bytes, 16-byte aligned) from the (B, C)
+// operands and the (C, 160, t_rs) window table.  Returns
+// cudaGetLastError() (0 = launched).
 int synth_kp_v5_planes_launch(const void* cp0, const void* two_a, const void* mu,
                               const void* g0, const void* o, const void* r, const void* carr0,
                               const void* fc, const void* fc_k, const void* vpack_rs,
                               void* planes, int B, int C, int n_k, int t_rs, void* stream) {
-  const dim3 grid(P_TILES, B, C);
-  kp_planes_kernel<<<grid, P_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cp0), static_cast<const float*>(two_a),
-      static_cast<const float*>(mu), static_cast<const float*>(g0), static_cast<const int*>(o),
-      static_cast<const float*>(r), static_cast<const float*>(carr0),
-      static_cast<const float*>(fc), static_cast<const float*>(fc_k),
-      static_cast<const int8_t*>(vpack_rs), static_cast<unsigned char*>(planes), B, C, n_k, t_rs);
-  return (int)cudaGetLastError();
+  const Operands a = {static_cast<const float*>(cp0),   static_cast<const float*>(two_a),
+                      static_cast<const float*>(mu),    static_cast<const float*>(g0),
+                      static_cast<const int*>(o),       static_cast<const float*>(r),
+                      static_cast<const float*>(carr0), static_cast<const float*>(fc),
+                      static_cast<const float*>(fc_k),  static_cast<const int8_t*>(vpack_rs),
+                      nullptr,                          nullptr,
+                      nullptr};
+  return launch_planes(a, static_cast<unsigned char*>(planes), B, C, n_k, t_rs,
+                       static_cast<cudaStream_t>(stream));
 }
 
-// Launch the main kernel on `stream`, after the prologue filled `planes`
-// on the same stream; returns cudaGetLastError() (0 = launched).  The
+// One call of the engine: launch the prologue and then the main kernel on
+// `stream`; returns the first launch error (0 = both launched).  The
 // CBOC instantiation runs when `cboc` is non-zero (alpha, beta are then
 // its weights), the GAIN one when `chan_gain` is not null; `f32` selects
 // the float32 store (out is then (B, n_k*1300) float2), which has no
 // GAIN instantiation.  k_chunk must be a multiple of 8 (the main loop
 // takes rows in groups of eight); else, or for f32 with gain,
-// cudaErrorInvalidValue.
-int synth_kp_v5_launch(const void* mu, const void* sym_bits, const void* pil_bits,
-                       const void* chan_gain, const void* planes, void* out, float alpha,
-                       float beta, int cboc, int f32, int B, int C, int n_k, int k_chunk,
-                       void* stream) {
-  const void* ops[4] = {mu, sym_bits, pil_bits, chan_gain};
+// cudaErrorInvalidValue, and nothing is launched.
+int synth_kp_v5_pair_launch(const void* cp0, const void* two_a, const void* mu, const void* g0,
+                            const void* o, const void* r, const void* carr0, const void* fc,
+                            const void* fc_k, const void* vpack_rs, const void* sym_bits,
+                            const void* pil_bits, const void* chan_gain, void* planes, void* out,
+                            float alpha, float beta, int cboc, int f32, int B, int C, int n_k,
+                            int k_chunk, int t_rs, void* stream) {
+  const Operands a = {static_cast<const float*>(cp0),    static_cast<const float*>(two_a),
+                      static_cast<const float*>(mu),     static_cast<const float*>(g0),
+                      static_cast<const int*>(o),        static_cast<const float*>(r),
+                      static_cast<const float*>(carr0),  static_cast<const float*>(fc),
+                      static_cast<const float*>(fc_k),   static_cast<const int8_t*>(vpack_rs),
+                      static_cast<const int*>(sym_bits), static_cast<const int*>(pil_bits),
+                      static_cast<const float*>(chan_gain)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gain = chan_gain != nullptr;
   if (k_chunk <= 0 || k_chunk % ROWS != 0 || (f32 && gain)) return (int)cudaErrorInvalidValue;
-  if (f32 && cboc) return launch<true, false, true>(ops, planes, out, alpha, beta, B, C, n_k, k_chunk, st);
-  if (f32) return launch<false, false, true>(ops, planes, out, alpha, beta, B, C, n_k, k_chunk, st);
-  if (cboc && gain) return launch<true, true, false>(ops, planes, out, alpha, beta, B, C, n_k, k_chunk, st);
-  if (cboc) return launch<true, false, false>(ops, planes, out, alpha, beta, B, C, n_k, k_chunk, st);
-  if (gain) return launch<false, true, false>(ops, planes, out, alpha, beta, B, C, n_k, k_chunk, st);
-  return launch<false, false, false>(ops, planes, out, alpha, beta, B, C, n_k, k_chunk, st);
+  unsigned char* pl = static_cast<unsigned char*>(planes);
+  const int err = launch_planes(a, pl, B, C, n_k, t_rs, st);
+  if (err != 0) return err;
+  if (f32 && cboc) return launch_main<true, false, true>(a, pl, out, alpha, beta, B, C, n_k, k_chunk, st);
+  if (f32) return launch_main<false, false, true>(a, pl, out, alpha, beta, B, C, n_k, k_chunk, st);
+  if (cboc && gain) return launch_main<true, true, false>(a, pl, out, alpha, beta, B, C, n_k, k_chunk, st);
+  if (cboc) return launch_main<true, false, false>(a, pl, out, alpha, beta, B, C, n_k, k_chunk, st);
+  if (gain) return launch_main<false, true, false>(a, pl, out, alpha, beta, B, C, n_k, k_chunk, st);
+  return launch_main<false, false, false>(a, pl, out, alpha, beta, B, C, n_k, k_chunk, st);
 }
 
 const char* synth_kp_v5_error_string(int err) {

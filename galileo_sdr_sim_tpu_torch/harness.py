@@ -25,7 +25,10 @@ receiver (acquisition, tracking, I/NAV decode, least-squares PVT) on a
 file of the fixture site's scene from PVT_START; `live_pickup` drives
 interactive mode at B = 1 and measures when a UDP position update
 reaches the samples; `AbsSumSink` is a device-resident consumer for
-`drain_host=False`.
+`drain_host=False`.  The jump scene (`write_jump_motion`,
+`jump_scene_blocks`, `compare_jump_files`, `acquire_block`) sends one
+block of a file-sink run through the direct fallback and holds two files
+of the scene to each other route by route.
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ import hashlib
 import socket
 import struct
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .cli import _parse_time
-from .constants import CA_SEQ_LEN_E1, EPOCH_DT, LUT_AMPLITUDE, R2D, SAMP_RATE
+from .constants import CA_SEQ_LEN_E1, EPOCH_DT, LUT_AMPLITUDE, NUM_IQ_SAMPLES, R2D, SAMP_RATE
 from .geodesy import llh2xyz
 from .io.sinks import Sink
 from .models.cboc import E1_CBOC
@@ -86,6 +90,13 @@ FIXTURE_LLH = (42.3601, -71.0589, 2.0)  # Boston, the CLI's default site
 PVT_START = "2022/02/19,23:30:18"
 PVT_SECONDS = 19.0
 LIVE_MOVE = (43.0, -70.0, 50.0)  # ~110 km from the fixture site
+# the jump scene: a user-motion file of 10 Hz rows, 15 s at the fixture
+# site, then 1370 km south of it.  The block that holds the jump leaves
+# the factorized engine's code-Doppler envelope and goes through the
+# direct engine; at the 30 s boundary the channels are reallocated
+JUMP_LLH = (30.0, -71.0589, 2.0)
+JUMP_ROWS = (150, 170)
+JUMP_SECONDS = 32.0
 
 
 def fixture_engine(nav_path, duration_s: float, model=E1_OS) -> ScenarioEngine:
@@ -291,6 +302,87 @@ class AbsSumSink(Sink):
         if block.dtype == torch.int32:
             block = block.view(torch.int16)
         self.sums.append(int(block.to(torch.int64).abs().sum()))
+
+
+def write_jump_motion(path, rows: tuple = JUMP_ROWS) -> str:
+    """Write the jump scene's user-motion file (lat,lon,hgt rows at 10 Hz):
+    rows[0] rows at FIXTURE_LLH, then rows[1] at JUMP_LLH."""
+    lines = [FIXTURE_LLH] * rows[0] + [JUMP_LLH] * rows[1]
+    with open(path, "w") as fh:
+        fh.write("".join(",".join(str(v) for v in row) + "\n" for row in lines))
+    return str(path)
+
+
+def jump_scene_blocks(nav_path, motion_path, duration_s: float = JUMP_SECONDS,
+                      block_epochs: int = 8) -> list:
+    """Walk the scene of a user-motion file from FIXTURE_START as the CLI
+    builds it -> one dict a block of `block_epochs` epochs: 'first' (the
+    index of its first epoch in the stream), 'epochs', 'fallback' (an
+    epoch outside the factorized engine's envelope: the streaming
+    executor sends the block through the direct engine), 'prn' (the
+    channel map) and 'f_carr' (each channel's carrier Doppler at the
+    block's first epoch)."""
+    from .cli import load_user_motion
+    from .ops.synth_kp import mu_in_envelope
+
+    nav = read_rinex_v3(nav_path)
+    g0 = scenario_start_time(nav, _parse_time(FIXTURE_START))
+    position = PositionProvider(trajectory=load_user_motion(str(motion_path)))
+    blocks, first = [], 0
+    for batch in ScenarioEngine(nav, position, g0, duration_s).batches(block_epochs):
+        n = batch.f_code.shape[0]
+        blocks.append({"first": first, "epochs": n, "fallback": not mu_in_envelope(batch.f_code),
+                       "prn": batch.prn.copy(), "f_carr": batch.f_carr[0].copy()})
+        first += n
+    return blocks
+
+
+def compare_jump_files(got_path, ref_path, blocks: list, nsamples: int = NUM_IQ_SAMPLES) -> dict:
+    """Two int16 I/Q files of one scene, block by block (`jump_scene_blocks`)
+    -> {'epochs' (the scene's), 'complete' (both files hold every epoch),
+    'kp' and 'fallback' (`engine_bar` over the blocks of each route:
+    'match', 'max_abs_err', 'ok'; both routes are float-carrier engines),
+    'kp_blocks', 'fallback_blocks'}."""
+    epochs = sum(b["epochs"] for b in blocks)
+    size = epochs * nsamples * 4
+    out = {"epochs": epochs, "kp_blocks": 0, "fallback_blocks": 0,
+           "complete": all(Path(p).stat().st_size == size for p in (got_path, ref_path))}
+    if not out["complete"]:
+        return out
+    got = np.memmap(got_path, dtype=np.int16, mode="r")
+    ref = np.memmap(ref_path, dtype=np.int16, mode="r")
+    same = {"kp": 0, "fallback": 0}
+    total = dict(same)
+    worst = dict(same)
+    for b in blocks:
+        route = "fallback" if b["fallback"] else "kp"
+        out[f"{route}_blocks"] += 1
+        lo, hi = (2 * nsamples * e for e in (b["first"], b["first"] + b["epochs"]))
+        diff = np.abs(got[lo:hi].astype(np.int32) - ref[lo:hi])
+        same[route] += int((diff == 0).sum())
+        total[route] += diff.size
+        worst[route] = max(worst[route], int(diff.max()))
+    for route in same:
+        match = same[route] / total[route] if total[route] else 1.0
+        out[route] = {"match": match, "max_abs_err": worst[route],
+                      "ok": match >= BAR_MATCH and worst[route] <= BAR_MAX_DIFF}
+    return out
+
+
+def acquire_block(iq_path, block: dict, nsamples: int = NUM_IQ_SAMPLES, n: int = 15600) -> list:
+    """PCPS acquisition of every active PRN of `block` (one dict of
+    `jump_scene_blocks`) over the first `n` samples (6 ms) of the block in
+    the int16 I/Q file -> [{'prn', 'metric', 'doppler', 'f_carr'}]."""
+    from .rx_track import acquire, iq_to_complex
+
+    x = iq_to_complex(np.fromfile(iq_path, dtype=np.int16, count=2 * n,
+                                  offset=block["first"] * nsamples * 4))
+    out = []
+    for c in np.flatnonzero(block["prn"] > 0):
+        a = acquire(x, int(block["prn"][c]))
+        out.append({"prn": int(block["prn"][c]), "metric": float(a.metric),
+                    "doppler": float(a.doppler), "f_carr": float(block["f_carr"][c])})
+    return out
 
 
 def free_udp_ports(n: int) -> tuple:

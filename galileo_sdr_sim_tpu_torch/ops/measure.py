@@ -1,12 +1,15 @@
 """Measurements of the port's kernels on the card: device time with CUDA
-events, and what the compiler made of a kernel library (its SASS
-instruction classes, from `cuobjdump -sass`, and its registers and
-spills, from `ptxas -v`).  Used by chip_smoke.py and ops/kp_ab.py; the
-timing needs a GPU, the SASS needs the CUDA toolkit's `cuobjdump`.
+events, the launch floor (an empty kernel of the same grid and block
+size, csrc/launch_floor.cu, timed the same way), and what the compiler
+made of a kernel library (its SASS instruction classes, from
+`cuobjdump -sass`, and its registers and spills, from `ptxas -v`).  Used
+by chip_smoke.py and ops/kp_ab.py; the timing needs a GPU, the SASS needs
+the CUDA toolkit's `cuobjdump`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 import subprocess
 from pathlib import Path
@@ -14,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import _build
 from ._build import find_nvcc
 
 # ~5 ms of an H100's clock: longer than the host takes to queue ten calls
@@ -33,6 +37,8 @@ _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
 _TARGET = re.compile(r"0x([0-9a-f]+)\s*$")
+
+_floor_lib: tuple[ctypes.CDLL, _build.Built] | None = None
 
 
 def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
@@ -58,6 +64,39 @@ def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / per)
     return float(np.median(times))
+
+
+def floor_library() -> tuple[ctypes.CDLL, _build.Built]:
+    """Build (at first use) and load csrc/launch_floor.cu, the empty
+    kernel."""
+    global _floor_lib
+    if _floor_lib is None:
+        built = _build.build("launch_floor")
+        lib = _build.load(built)
+        lib.launch_floor_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.launch_floor_launch.restype = ctypes.c_int
+        _floor_lib = (lib, built)
+    return _floor_lib
+
+
+def floor_ms(launches, device: torch.device | None = None) -> float:
+    """The launch floor of a kernel call: `median_ms` of empty kernels
+    launched back to back on the current stream, one for each
+    ((gx, gy, gz), threads) of `launches` (a wrapper's `launch_geometry`):
+    what launches of these grids and block sizes take on the card when
+    the kernels do nothing."""
+    lib, _ = floor_library()
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+
+    def run() -> None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for grid, threads in launches:
+            err = lib.launch_floor_launch(*grid, threads, stream)
+            if err != 0:
+                raise RuntimeError(f"empty kernel {grid} x {threads}: CUDA error {err}")
+
+    with torch.cuda.device(device):
+        return median_ms(run)
 
 
 def parse_sass(text: str) -> dict:

@@ -129,11 +129,11 @@ def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
         lib.synth_kp_v5_planes_launch.argtypes = (
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.synth_kp_v5_planes_launch.restype = ctypes.c_int
-        lib.synth_kp_v5_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 6
+        lib.synth_kp_v5_pair_launch.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.c_float] * 2 + [ctypes.c_int] * 7
             + [ctypes.c_void_p]
         )
-        lib.synth_kp_v5_launch.restype = ctypes.c_int
+        lib.synth_kp_v5_pair_launch.restype = ctypes.c_int
         lib.synth_kp_v5_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.synth_kp_v5_smem_bytes.restype = ctypes.c_size_t
         lib.synth_kp_v5_planes_bytes.argtypes = [ctypes.c_int] * 3
@@ -144,31 +144,37 @@ def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
     return _libs[fmad]
 
 
+_WANT = {name: torch.int32 if name in INT_OPERANDS else torch.float32
+         for name in (*SCALAR_OPERANDS, GAIN_OPERAND)}
+_WITH_GAIN = SCALAR_OPERANDS + (GAIN_OPERAND,)
+
+
 def _check(inputs: dict, n_k: int) -> tuple[int, int]:
+    """Raise on operands the kernels do not take -> (B, C).  It runs once
+    a call, on the host, before anything is launched."""
     cp0 = inputs["cp0"]
     if cp0.dim() != 2:
         raise ValueError(f"cp0 must be (B, C), got {tuple(cp0.shape)}")
-    B, C = cp0.shape
-    names = SCALAR_OPERANDS + ((GAIN_OPERAND,) if GAIN_OPERAND in inputs else ())
-    for name in names:
+    shape, device = cp0.shape, cp0.device
+    B, C = shape
+    for name in _WITH_GAIN if GAIN_OPERAND in inputs else SCALAR_OPERANDS:
         t = inputs[name]
-        want = torch.int32 if name in INT_OPERANDS else torch.float32
-        if t.dtype != want or tuple(t.shape) != (B, C):
-            raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, want {want}({B}, {C})")
-        if t.device != cp0.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {cp0.device}")
+        if t.dtype is not _WANT[name] or t.shape != shape:
+            raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, want {_WANT[name]}({B}, {C})")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
     if "cboc_ab" in inputs:
         ab = inputs["cboc_ab"]
-        if ab.dtype != torch.float32 or tuple(ab.shape) != (2,) or ab.device.type != "cpu":
+        if ab.dtype is not torch.float32 or ab.shape != (2,) or ab.device.type != "cpu":
             raise ValueError(
                 f"cboc_ab: {ab.dtype}{tuple(ab.shape)} on {ab.device}, "
                 "want a float32 (2,) host tensor (alpha, beta)"
             )
     tab = inputs["vpack_rs"]
-    if tab.dtype != torch.int8 or tuple(tab.shape) != (C, W_RS, T_RS):
+    if tab.dtype is not torch.int8 or tab.shape != (C, W_RS, T_RS):
         raise ValueError(f"vpack_rs: {tab.dtype}{tuple(tab.shape)}, want int8({C}, {W_RS}, {T_RS})")
-    if tab.device != cp0.device or not tab.is_contiguous():
-        raise ValueError(f"vpack_rs must be contiguous on {cp0.device}")
+    if tab.device != device or not tab.is_contiguous():
+        raise ValueError(f"vpack_rs must be contiguous on {device}")
     if n_k <= 0 or n_k % ROWS != 0 or n_k // ROWS + 2 > SYM_BITS:
         raise ValueError(f"n_k={n_k}: need a positive multiple of {ROWS} with n_k/8 + 2 <= 32")
     return B, C
@@ -181,8 +187,8 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def _launch_planes(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
-    """Launch the prologue on the current stream of the inputs' device
-    into a planes scratch allocated here, which it returns."""
+    """Launch the prologue alone on the current stream of the inputs'
+    device into a planes scratch allocated here, which it returns."""
     B, C = _check(inputs, n_k)
     device = inputs["cp0"].device
     planes = torch.empty(planes_bytes(B, C, n_k), dtype=torch.uint8, device=device)
@@ -196,17 +202,21 @@ def _launch_planes(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
     return planes
 
 
-def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int, f32: bool = False) -> torch.Tensor:
-    """Launch the prologue and then the instantiation the operands select,
-    from `lib`, on the current stream of the inputs' device; the outputs
-    and the planes scratch are allocated here, nothing is synchronized.
-    `f32`: the float32 store, (B, n_k*1300, 2); else the packed one,
-    (B, n_k, 1300) int32."""
+def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int, f32: bool = False,
+            chunk: int | None = None) -> torch.Tensor:
+    """One call of `lib`'s entry point for the pair: the prologue and then
+    the instantiation the operands select, on the current stream of the
+    inputs' device; the output and the planes scratch are allocated
+    here, nothing is synchronized.  `f32`: the float32 store,
+    (B, n_k*1300, 2); else the packed one, (B, n_k, 1300) int32.
+    `chunk`: the K rows a main-kernel block takes, `k_chunk(B, C, n_k)`
+    unless given."""
     global launch_count
     B, C = _check(inputs, n_k)
     name = instantiation(inputs, f32)
     device = inputs["cp0"].device
-    chunk = k_chunk(B, C, n_k)
+    if chunk is None:
+        chunk = k_chunk(B, C, n_k)
     if smem_bytes(C, chunk) > SMEM_LIMIT:
         raise ValueError(f"C={C} channels need {smem_bytes(C, chunk)} B of shared memory "
                          f"(> {SMEM_LIMIT})")
@@ -217,17 +227,19 @@ def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int, f32: bool = False) -> torc
         out = torch.empty((B, n_k * P_GRID, 2), dtype=torch.float32, device=device)
     else:
         out = torch.empty((B, n_k, P_GRID), dtype=torch.int32, device=device)
-    planes = _launch_planes(lib, inputs, n_k)
+    planes = torch.empty(planes_bytes(B, C, n_k), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.synth_kp_v5_launch(
-            inputs["mu"].data_ptr(), inputs["sym_bits"].data_ptr(), inputs["pil_bits"].data_ptr(),
+        err = lib.synth_kp_v5_pair_launch(
+            *(inputs[k].data_ptr() for k in PLANE_OPERANDS), inputs["vpack_rs"].data_ptr(),
+            inputs["sym_bits"].data_ptr(), inputs["pil_bits"].data_ptr(),
             None if gain is None else gain.data_ptr(), planes.data_ptr(), out.data_ptr(),
-            alpha, beta, int(cboc), int(f32), B, C, n_k, chunk, stream,
+            alpha, beta, cboc, f32, B, C, n_k, chunk, T_RS,
+            torch.cuda.current_stream(device).cuda_stream,
         )
-    _raise_on(lib, err, "synth_kp_v5")
+    _raise_on(lib, err, name)
     launch_count += 1
     launch_counts[name] += 1
+    launch_counts[PLANES] += 1
     return out
 
 
