@@ -189,10 +189,32 @@ __device__ inline void store_sample(void* out, size_t at, float acc_i, float acc
   }
 }
 
-// The prologue (_kernel_v5 lines 124-170): one block per (p tile, epoch
-// b, channel c), one thread per column p, which also computes the K
-// factor of row K = p.
-__global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
+// the prologue's blocks: PRO_COLS columns p by the eight rows rho, one
+// warp a row; after the PRO_TILES column tiles of a (b, c) come the
+// blocks of its K factors
+constexpr int PRO_COLS = 32;
+constexpr int PRO_THREADS = PRO_COLS * ROWS;
+constexpr int PRO_TILES = (P_GRID + PRO_COLS - 1) / PRO_COLS;
+
+__host__ __device__ inline dim3 planes_grid(int B, int C, int n_k) {
+  return dim3(PRO_TILES + (n_k + PRO_THREADS - 1) / PRO_THREADS, B, C);
+}
+
+// the (b, c) operands a column block keeps in shared memory, as words
+enum { S_CP0, S_TWO_A, S_MU, S_G0, S_O, S_R, S_CARR0, S_FC, S_COUNT };
+
+// The prologue (_kernel_v5 lines 124-170).  A column block takes
+// PRO_COLS columns p of one (epoch b, channel c): thread (rho, p) selects
+// row rho's four taps of column p from the window table (one byte each,
+// a warp's 32 threads on 32 neighbouring bytes) and packs its chip word;
+// while those loads are in flight warp 0 computes the column's psi, w8
+// and carrier p factor and warp 1 its bits word; warps 2 and 3 gather
+// the eight chip words of a column from shared memory into the two uint4
+// stores.  The blocks after the column tiles compute the K factors, one
+// row K a thread.  Every value is the expression of _kernel_v5, in its
+// order: only who computes it changed.  Columns 1300.. of the scratch
+// are left unwritten; the main kernel does not read them.
+__global__ void __launch_bounds__(PRO_THREADS) kp_planes_kernel(
     const float* __restrict__ cp0, const float* __restrict__ two_a,
     const float* __restrict__ mu, const float* __restrict__ g0,
     const int* __restrict__ o, const float* __restrict__ r,
@@ -200,76 +222,104 @@ __global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
     const float* __restrict__ fc_k, const int8_t* __restrict__ vpack_rs,
     unsigned char* __restrict__ planes, int B, int C, int n_k, int t_rs) {
   const Planes q = carve_planes(planes, B, C);
-  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
   const int c = blockIdx.z;
-  const int bc = b * C + c;
-  const int p = blockIdx.x * P_TILE + threadIdx.x;
-  const size_t at = (size_t)bc * P_PAD + p;
+  const int bc = blockIdx.y * C + c;
   const float two_pi = (float)6.283185307179586;  // float32(2*pi)
-  const float inv_nper = 1.0f / NPER;
-  const float s_ratio = (float)(1023.0 / 1300.0);
 
-  // K-factor table: cis(2*pi*frac(fc_k * K))
-  for (int K = p; K < n_k; K += P_PAD) {
-    float ph = fc_k[bc] * (float)K;
-    ph = ph - floorf(ph);
-    const float ang = two_pi * ph;
-    q.cisk[(size_t)bc * n_k + K] = make_float2(cosf(ang), sinf(ang));
-  }
-  if (p >= P_GRID) {
-    q.plf[at] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    q.chip[((size_t)bc * 2) * P_PAD + p] = make_uint4(0u, 0u, 0u, 0u);
-    q.chip[((size_t)bc * 2 + 1) * P_PAD + p] = make_uint4(0u, 0u, 0u, 0u);
-    q.bits[at] = 0u;
+  if (blockIdx.x >= PRO_TILES) {
+    // K-factor table: cis(2*pi*frac(fc_k * K))
+    const float fck = fc_k[bc];
+    const int stride = (gridDim.x - PRO_TILES) * PRO_THREADS;
+    for (int K = (blockIdx.x - PRO_TILES) * PRO_THREADS + tid; K < n_k; K += stride) {
+      float ph = fck * (float)K;
+      ph = ph - floorf(ph);
+      const float ang = two_pi * ph;
+      q.cisk[(size_t)bc * n_k + K] = make_float2(cosf(ang), sinf(ang));
+    }
     return;
   }
+
+  __shared__ uint32_t s_op[S_COUNT];
+  __shared__ uint32_t s_words[ROWS][PRO_COLS];
+  if (tid < S_COUNT) {
+    // one load a thread: the operand is chosen by selects, not branches
+    const void* src = tid == S_CP0     ? static_cast<const void*>(cp0)
+                      : tid == S_TWO_A ? static_cast<const void*>(two_a)
+                      : tid == S_MU    ? static_cast<const void*>(mu)
+                      : tid == S_G0    ? static_cast<const void*>(g0)
+                      : tid == S_O     ? static_cast<const void*>(o)
+                      : tid == S_R     ? static_cast<const void*>(r)
+                      : tid == S_CARR0 ? static_cast<const void*>(carr0)
+                                       : static_cast<const void*>(fc);
+    s_op[tid] = static_cast<const uint32_t*>(src)[bc];
+  }
+  __syncthreads();
+
+  const int lane = tid % PRO_COLS;
+  const int rho = tid / PRO_COLS;
+  const int p = blockIdx.x * PRO_COLS + lane;
+  const bool live = p < P_GRID;
+  const size_t at = (size_t)bc * P_PAD + p;
+  const float inv_nper = 1.0f / NPER;
+  const float s_ratio = (float)(1023.0 / 1300.0);
   const float pp = (float)p;
-  const float mu_c = mu[bc];
-  const float phi = 2.0f * cp0[bc] + two_a[bc] * pp;
+  const float mu_c = __uint_as_float(s_op[S_MU]);
+  const float phi = 2.0f * __uint_as_float(s_op[S_CP0]) + __uint_as_float(s_op[S_TWO_A]) * pp;
   const float gb = floorf(phi) + (mu_c < 0.0f ? -1.0f : 0.0f);
-  const float psi = phi - gb;
-  const float gbm = gb - NPER * floorf(gb * inv_nper);
-  const float w8 = gb >= NPER ? 1.0f : 0.0f;
   const float s_p = floorf(pp * s_ratio);
   const float m_p = (float)COLS * pp - (float)P_GRID * s_p;
-  const float kap_p = m_p + r[bc] >= (float)P_GRID ? 1.0f : 0.0f;
-  const float e2 = (gb - g0[bc]) - s_p - kap_p;
-  float ph_p = carr0[bc] + fc[bc] * pp;
-  ph_p = ph_p - floorf(ph_p);
-  const float ang_p = two_pi * ph_p;
-  q.plf[at] = make_float4(psi, w8, cosf(ang_p), sinf(ang_p));
+  const float kap_p = m_p + __uint_as_float(s_op[S_R]) >= (float)P_GRID ? 1.0f : 0.0f;
+  const float e2 = (gb - __uint_as_float(s_op[S_G0])) - s_p - kap_p;
 
-  // 5-tap select: rows j*32 .. j*32+31 of column o + p, j = e2 + 2
-  int8_t v[W_PACK];
+  // 5-tap select: rows j*32 + rho, + 8, + 16, + 24 of column o + p,
+  // j = e2 + 2
+  int a0b = 0, a1b = 0, a0c = 0, a1c = 0;
   const int j = (int)e2 + 2;
-  if (j >= 0 && j < J_RS) {
-    const int8_t* src = vpack_rs + ((size_t)c * W_RS + (size_t)j * W_PACK) * t_rs + o[bc] + p;
-#pragma unroll
-    for (int k = 0; k < W_PACK; ++k) v[k] = src[(size_t)k * t_rs];
-  } else {
-#pragma unroll
-    for (int k = 0; k < W_PACK; ++k) v[k] = 0;
+  if (live && j >= 0 && j < J_RS) {
+    const int8_t* src = vpack_rs +
+                        ((size_t)c * W_RS + (size_t)j * W_PACK + rho) * t_rs +
+                        (int)s_op[S_O] + p;
+    a0b = src[0];
+    a1b = src[(size_t)ROWS * t_rs];
+    a0c = src[(size_t)2 * ROWS * t_rs];
+    a1c = src[(size_t)3 * ROWS * t_rs];
   }
-  uint32_t words[ROWS];
-  uint32_t bw = 0;
+
+  if (rho == 0 && live) {
+    const float psi = phi - gb;
+    const float w8 = gb >= NPER ? 1.0f : 0.0f;
+    float ph_p = __uint_as_float(s_op[S_CARR0]) + __uint_as_float(s_op[S_FC]) * pp;
+    ph_p = ph_p - floorf(ph_p);
+    const float ang_p = two_pi * ph_p;
+    q.plf[at] = make_float4(psi, w8, cosf(ang_p), sinf(ang_p));
+  } else if (rho == 1 && live) {
+    const float gbm = gb - NPER * floorf(gb * inv_nper);
+    uint32_t bw = 0;
 #pragma unroll
-  for (int rho = 0; rho < ROWS; ++rho) {
-    const int a0b = v[rho], a0c = v[16 + rho];
-    words[rho] = chip_byte(a0b) | chip_byte(v[8 + rho] - a0b) << 8 | chip_byte(a0c) << 16 |
-                 chip_byte(v[24 + rho] - a0c) << 24;
-    // b1 >= b0 for every gbm (gbm + 1 >= gbm in float32), so b1 - b0 is
-    // 0 or 1: one bit
-    const float thr = (float)COLS * ((float)ROWS - (float)rho);
-    const uint32_t b0 = gbm >= thr ? 1u : 0u;
-    const uint32_t b1 = gbm + 1.0f >= thr ? 1u : 0u;
-    bw |= b0 << rho;
-    bw |= (b1 - b0) << (8 + rho);
+    for (int row = 0; row < ROWS; ++row) {
+      // b1 >= b0 for every gbm (gbm + 1 >= gbm in float32), so b1 - b0 is
+      // 0 or 1: one bit
+      const float thr = (float)COLS * ((float)ROWS - (float)row);
+      const uint32_t b0 = gbm >= thr ? 1u : 0u;
+      const uint32_t b1 = gbm + 1.0f >= thr ? 1u : 0u;
+      bw |= b0 << row;
+      bw |= (b1 - b0) << (8 + row);
+    }
+    const float pgb = gb - 2.0f * floorf(gb * 0.5f);  // exact: gb is an integer
+    bw |= (pgb != 0.0f ? 1u : 0u) << 16;
+    q.bits[at] = bw;
   }
-  const float pgb = gb - 2.0f * floorf(gb * 0.5f);  // exact: gb is an integer
-  bw |= (pgb != 0.0f ? 1u : 0u) << 16;
-  q.chip[((size_t)bc * 2) * P_PAD + p] = make_uint4(words[0], words[1], words[2], words[3]);
-  q.chip[((size_t)bc * 2 + 1) * P_PAD + p] = make_uint4(words[4], words[5], words[6], words[7]);
-  q.bits[at] = bw;
+
+  s_words[rho][lane] = chip_byte(a0b) | chip_byte(a1b - a0b) << 8 | chip_byte(a0c) << 16 |
+                       chip_byte(a1c - a0c) << 24;
+  __syncthreads();
+  if ((rho == 2 || rho == 3) && live) {
+    const int h = rho - 2;  // rows 4h .. 4h+3
+    q.chip[((size_t)bc * 2 + h) * P_PAD + p] =
+        make_uint4(s_words[4 * h][lane], s_words[4 * h + 1][lane], s_words[4 * h + 2][lane],
+                   s_words[4 * h + 3][lane]);
+  }
 }
 
 template <bool CBOC, bool GAIN, bool F32>
@@ -366,8 +416,9 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(n_k, k_begin + k_chunk);
 
-  // the block's tile of the planes, coalesced along p
-  for (int c = 0; c < C; ++c) {
+  // the block's tile of the planes, coalesced along p (the prologue
+  // writes columns 0..1299 only)
+  for (int c = 0; c < C && p < P_GRID; ++c) {
     const size_t bc = (size_t)b * C + c;
     s.plf[c * P_TILE + tid] = q.plf[bc * P_PAD + p];
     s.chip[(c * 2) * P_TILE + tid] = q.chip[(bc * 2) * P_PAD + p];
@@ -427,10 +478,9 @@ struct Operands {
 
 int launch_planes(const Operands& a, unsigned char* planes, int B, int C, int n_k, int t_rs,
                   cudaStream_t stream) {
-  const dim3 grid(P_TILES, B, C);
-  kp_planes_kernel<<<grid, P_TILE, 0, stream>>>(a.cp0, a.two_a, a.mu, a.g0, a.o, a.r, a.carr0,
-                                                a.fc, a.fc_k, a.vpack_rs, planes, B, C, n_k,
-                                                t_rs);
+  kp_planes_kernel<<<planes_grid(B, C, n_k), PRO_THREADS, 0, stream>>>(
+      a.cp0, a.two_a, a.mu, a.g0, a.o, a.r, a.carr0, a.fc, a.fc_k, a.vpack_rs, planes, B, C, n_k,
+      t_rs);
   return (int)cudaGetLastError();
 }
 
@@ -454,6 +504,15 @@ extern "C" {
 // rows needs, and the bytes of the planes scratch of B epochs.
 size_t synth_kp_v5_smem_bytes(int C, int k_chunk) { return smem_bytes(C, k_chunk); }
 size_t synth_kp_v5_planes_bytes(int B, int C, int n_k) { return planes_bytes(B, C, n_k); }
+
+// The launch geometry of a call: out8 = the prologue's grid (x, y, z) and
+// block size, then the main kernel's.
+void synth_kp_v5_geometry(int B, int C, int n_k, int k_chunk, int* out8) {
+  const dim3 pro = planes_grid(B, C, n_k);
+  const int geometry[8] = {(int)pro.x, (int)pro.y, (int)pro.z, PRO_THREADS,
+                           P_TILES,    B,          (n_k + k_chunk - 1) / k_chunk, P_TILE};
+  for (int i = 0; i < 8; ++i) out8[i] = geometry[i];
+}
 
 // Launch the prologue alone on `stream`: fill `planes`
 // (synth_kp_v5_planes_bytes bytes, 16-byte aligned) from the (B, C)

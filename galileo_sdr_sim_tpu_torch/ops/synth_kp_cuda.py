@@ -65,6 +65,9 @@ FMAD = True
 P_TILE = 128  # columns p a block of the main kernel takes
 P_TILES = -(-P_GRID // P_TILE)  # 11 blocks along p
 K_CHUNK = 40  # most K rows a block of the main kernel takes
+PRO_COLS = 32  # columns p a block of the prologue takes, by the 8 rows rho
+PRO_THREADS = PRO_COLS * ROWS
+PRO_TILES = -(-P_GRID // PRO_COLS)  # 41 column blocks, then the K-factor blocks
 MIN_BLOCKS = 2 * 132  # two blocks per SM of an H100
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -109,6 +112,16 @@ def k_chunk(B: int, C: int, n_k: int = K_EPOCH) -> int:
     return ROWS
 
 
+def launch_geometry(B: int, C: int, n_k: int = K_EPOCH, chunk: int | None = None) -> tuple:
+    """((grid, threads) of the prologue, (grid, threads) of the main
+    kernel) of one call (the source's synth_kp_v5_geometry): the prologue
+    takes 41 column tiles and the K-factor blocks of every (b, c), the
+    main kernel 11 column tiles by B epochs by the K chunks."""
+    chunk = k_chunk(B, C, n_k) if chunk is None else chunk
+    return (((PRO_TILES + -(-n_k // PRO_THREADS), B, C), PRO_THREADS),
+            ((P_TILES, B, -(-n_k // chunk)), P_TILE))
+
+
 def instantiation(inputs: dict, f32: bool = False) -> str:
     """The kernel instantiation the operands and the emit select."""
     name = "synth_kp_v5"
@@ -138,6 +151,8 @@ def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
         lib.synth_kp_v5_smem_bytes.restype = ctypes.c_size_t
         lib.synth_kp_v5_planes_bytes.argtypes = [ctypes.c_int] * 3
         lib.synth_kp_v5_planes_bytes.restype = ctypes.c_size_t
+        lib.synth_kp_v5_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.synth_kp_v5_geometry.restype = None
         lib.synth_kp_v5_error_string.argtypes = [ctypes.c_int]
         lib.synth_kp_v5_error_string.restype = ctypes.c_char_p
         _libs[fmad] = (lib, built)
