@@ -189,6 +189,24 @@ __device__ inline void store_sample(void* out, size_t at, float acc_i, float acc
   }
 }
 
+// Programmatic dependent launch (Hopper): the main kernel is launched
+// with cudaLaunchAttributeProgrammaticStreamSerialization, so the card may
+// start its blocks once every block of the prologue ahead of it on the
+// stream has called grid_launch_dependents() (PTX griddepcontrol.
+// launch_dependents, CUDA's cudaTriggerProgrammaticLaunchCompletion) or
+// exited.  Such a block must call grid_dependency_wait() (griddepcontrol.
+// wait, cudaGridDependencySynchronize) before it reads what the prologue
+// wrote: the wait returns when the whole prologue grid has completed and
+// its stores are visible.  Without a dependent, or launched without the
+// attribute, both are no-ops.
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // the prologue's blocks: PRO_COLS columns p by the eight rows rho, one
 // warp a row; after the PRO_TILES column tiles of a (b, c) come the
 // blocks of its K factors
@@ -237,6 +255,7 @@ __global__ void __launch_bounds__(PRO_THREADS) kp_planes_kernel(
       const float ang = two_pi * ph;
       q.cisk[(size_t)bc * n_k + K] = make_float2(cosf(ang), sinf(ang));
     }
+    grid_launch_dependents();
     return;
   }
 
@@ -320,6 +339,7 @@ __global__ void __launch_bounds__(PRO_THREADS) kp_planes_kernel(
         make_uint4(s_words[4 * h][lane], s_words[4 * h + 1][lane], s_words[4 * h + 2][lane],
                    s_words[4 * h + 3][lane]);
   }
+  grid_launch_dependents();
 }
 
 template <bool CBOC, bool GAIN, bool F32>
@@ -404,8 +424,8 @@ template <bool CBOC, bool GAIN, bool F32>
 __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
     const float* __restrict__ mu, const int* __restrict__ sym_bits,
     const int* __restrict__ pil_bits, const float* __restrict__ chan_gain,
-    const unsigned char* __restrict__ planes, void* __restrict__ out, float alpha,
-    float beta, int B, int C, int n_k, int k_chunk) {
+    const unsigned char* planes, void* __restrict__ out, float alpha, float beta, int B, int C,
+    int n_k, int k_chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem s = carve(smem_raw, C, k_chunk);
   const Planes q = carve_planes(const_cast<unsigned char*>(planes), B, C);
@@ -416,24 +436,30 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(n_k, k_begin + k_chunk);
 
-  // the block's tile of the planes, coalesced along p (the prologue
-  // writes columns 0..1299 only)
-  for (int c = 0; c < C && p < P_GRID; ++c) {
-    const size_t bc = (size_t)b * C + c;
-    s.plf[c * P_TILE + tid] = q.plf[bc * P_PAD + p];
-    s.chip[(c * 2) * P_TILE + tid] = q.chip[(bc * 2) * P_PAD + p];
-    s.chip[(c * 2 + 1) * P_TILE + tid] = q.chip[(bc * 2 + 1) * P_PAD + p];
-    s.bits[c * P_TILE + tid] = q.bits[bc * P_PAD + p];
-  }
-  for (int i = tid; i < C * k_chunk; i += P_TILE) {
-    const int c = i / k_chunk;
-    const int K = k_begin + i % k_chunk;
-    s.cisk[i] = K < n_k ? q.cisk[((size_t)b * C + c) * n_k + K] : make_float2(0.0f, 0.0f);
-  }
+  // what the block needs that the prologue does not write: the (b, c)
+  // scalars, loaded while the prologue may still be running
   for (int c = tid; c < C; c += P_TILE) {
     const int bc = b * C + c;
     s.scal[c] = make_float4(mu[bc], __int_as_float(sym_bits[bc]), __int_as_float(pil_bits[bc]),
                             GAIN ? chan_gain[bc] : 1.0f);
+  }
+  grid_dependency_wait();
+
+  // the block's tile of the planes, coalesced along p (the prologue
+  // writes columns 0..1299 only).  The planes were written while this
+  // kernel was already resident, so they are read from L2 (__ldcg), never
+  // through the read-only path
+  for (int c = 0; c < C && p < P_GRID; ++c) {
+    const size_t bc = (size_t)b * C + c;
+    s.plf[c * P_TILE + tid] = __ldcg(&q.plf[bc * P_PAD + p]);
+    s.chip[(c * 2) * P_TILE + tid] = __ldcg(&q.chip[(bc * 2) * P_PAD + p]);
+    s.chip[(c * 2 + 1) * P_TILE + tid] = __ldcg(&q.chip[(bc * 2 + 1) * P_PAD + p]);
+    s.bits[c * P_TILE + tid] = __ldcg(&q.bits[bc * P_PAD + p]);
+  }
+  for (int i = tid; i < C * k_chunk; i += P_TILE) {
+    const int c = i / k_chunk;
+    const int K = k_begin + i % k_chunk;
+    s.cisk[i] = K < n_k ? __ldcg(&q.cisk[((size_t)b * C + c) * n_k + K]) : make_float2(0.0f, 0.0f);
   }
   __syncthreads();
   if (p >= P_GRID) return;
@@ -490,10 +516,20 @@ int launch_main(const Operands& a, const unsigned char* planes, void* out, float
   const size_t smem = smem_bytes(C, k_chunk);
   const cudaError_t err = grant_smem<CBOC, GAIN, F32>(smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(P_TILES, B, (n_k + k_chunk - 1) / k_chunk);
-  synth_kp_v5_kernel<CBOC, GAIN, F32><<<grid, P_TILE, smem, stream>>>(
-      a.mu, a.sym_bits, a.pil_bits, a.chan_gain, planes, out, alpha, beta, B, C, n_k, k_chunk);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute dependent = {};
+  dependent.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(P_TILES, B, (n_k + k_chunk - 1) / k_chunk);
+  config.blockDim = dim3(P_TILE);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &dependent;
+  config.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &config, synth_kp_v5_kernel<CBOC, GAIN, F32>, a.mu, a.sym_bits, a.pil_bits, a.chan_gain,
+      planes, out, alpha, beta, B, C, n_k, k_chunk);
+  return (int)(launched != cudaSuccess ? launched : cudaGetLastError());
 }
 
 }  // namespace
