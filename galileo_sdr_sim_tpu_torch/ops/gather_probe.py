@@ -39,6 +39,11 @@ PROBES = (
     ((128, 128), 128, 0),
 )
 SEED = 0  # of the generator `main` draws every probe's inputs from
+THREADS = 256  # threads a block; each gathers one int4, four outputs
+OUT_TILE = 4 * THREADS  # outputs a block gathers
+AX0_COLS = 32  # columns of the tile an axis-0 block stages (all rows of them)
+AX0_ROWS = OUT_TILE // AX0_COLS  # output rows an axis-0 block gathers
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 # launches of the kernel in this process (read and reset by chip_smoke.py)
 launch_count = 0
@@ -55,6 +60,10 @@ def library() -> tuple[ctypes.CDLL, _build.Built]:
         lib.gather_probe_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         lib.gather_probe_launch.restype = ctypes.c_int
+        lib.gather_probe_tile_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gather_probe_tile_bytes.restype = ctypes.c_size_t
+        lib.gather_probe_geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.gather_probe_geometry.restype = None
         lib.gather_probe_error_string.argtypes = [ctypes.c_int]
         lib.gather_probe_error_string.restype = ctypes.c_char_p
         _lib = (lib, built)
@@ -67,6 +76,36 @@ def take_along_axis_ref(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torc
     inside = (idx >= 0) & (idx < tab.shape[axis])
     out = torch.take_along_dim(tab, torch.where(inside, idx, 0).long(), dim=axis)
     return torch.where(inside, out, 0)
+
+
+def tile_bytes(rows: int, cols: int, axis: int) -> int:
+    """Bytes of the table a block stages in shared memory (the source's
+    tile_bytes): along axis 1 its whole row, along axis 0 every row of its
+    32 columns."""
+    return 4 * (rows * AX0_COLS if axis == 0 else cols)
+
+
+def launch_geometry(rows: int, cols: int, axis: int) -> tuple:
+    """(grid, threads) of one launch (the source's gather_probe_geometry):
+    along axis 1 a block a row and 1024 outputs of it, along axis 0 a
+    block a 32-column tile and 32 output rows of it."""
+    if axis == 0:
+        grid = (-(-cols // AX0_COLS), -(-rows // AX0_ROWS), 1)
+    else:
+        grid = (-(-cols // OUT_TILE), rows, 1)
+    return grid, THREADS
+
+
+def _check_tiles(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
+    """What the kernel asks beyond `_check`: rows move 16 bytes at a time,
+    and a block's slice of the table must fit its shared memory."""
+    rows, cols = tab.shape
+    if cols % 4 != 0 or tab.data_ptr() % 16 != 0 or idx.data_ptr() % 16 != 0:
+        raise ValueError(f"the kernel needs 16-byte aligned rows: cols={cols} must be a multiple "
+                         "of 4, tab and idx 16-byte aligned")
+    if tile_bytes(rows, cols, axis) > SMEM_LIMIT:
+        raise ValueError(f"a block's slice of the table ({tile_bytes(rows, cols, axis)} B) "
+                         f"exceeds its shared memory ({SMEM_LIMIT} B)")
 
 
 def _check(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> None:
@@ -93,6 +132,7 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
         return take_along_axis_ref(tab, idx, axis)
     if tab.device.type != "cuda":
         raise ValueError(f"unsupported device {tab.device}")
+    _check_tiles(tab, idx, axis)
     lib, _ = library()
     out = torch.empty_like(tab)
     rows, cols = tab.shape
