@@ -10,8 +10,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
 2. build, in parallel, of csrc/synth_kp_v5.cu (its prologue kernel and
    the six instantiations of its main kernel: sine-BOC or CBOC, without
    or with per-channel gain, and the f32 emit of sine-BOC and CBOC, all
-   in the TPU kernel's K-vectorised main loop) and of
-   csrc/gather_probe.cu, from this checkout; each kernel's registers and
+   in the TPU kernel's K-vectorised main loop), of
+   csrc/gather_probe.cu and of csrc/launch_floor.cu (the empty kernel
+   that times a launch), from this checkout; each kernel's registers and
    spills (ptxas) and SASS instruction classes (cuobjdump), whole and in
    its main loop, which must hold no int<->float conversion; then the
    same-bits guard: every instantiation reproduces the digests of
@@ -54,12 +55,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
    psum bar (>= 99.9% identical, no sample off by more than 1 LSB), the
    first acquired;
 7. timings with CUDA events (kernel vs plain version for each
-   instantiation and the f32 emit at B = 8, each instantiation at B = 1,
-   the prologue kernel alone at B = 8 and B = 1, median of 25 samples of
-   10 back-to-back calls queued behind a sleep kernel, after warm-up, and
-   each wrapper's host time a call; the gather kernel beside its plain
-   version and `torch.take_along_dim` on the seven probe shapes; the
-   band-limit filter per block;
+   instantiation and the f32 emit at B = 8, each instantiation at B = 1;
+   the pair of launches of a call, the prologue kernel alone, the
+   wrapper's host time a call and the launch floors, at B = 8 with
+   C = 2, 8 and 16 and at B = 1; median of 25 samples of 10 back-to-back
+   calls queued behind a sleep kernel, after warm-up; the gather kernel
+   beside its plain version, `torch.take_along_dim` and its launch floor
+   on the seven probe shapes; the band-limit filter per block;
    the all-reduce of one block's float32 partial, NCCL in one rank and
    gloo in two), the end-to-end file-sink rate of a 30 s default run and
    of a 10 s `--bandlimit` run (3 runs each), of a 10 s one-process
@@ -82,12 +84,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
    a CUDA tensor; live mode at B = 1 (harness.live_pickup): a UDP
    position update sent while block 1 drains reaches block 3's samples;
    the file-sink rate of 30 s runs at depth 1 and 3, in turns, three
-   runs each, median, min and max, with the stage split.
+   runs each, median, min and max, with the stage split;
+9. the direct fallback through the CLI: the jump scene (a user-motion
+   file, 15 s at the fixture site, then 1370 km south of it; 32 s)
+   through cli.main on the card (no --device: the CLI takes the card) and
+   with --device cpu (the CLI as a second process, started beside phase
+   8).  The card's run launches the kernel for every block but those
+   with an epoch outside the code-Doppler envelope, of which there is at
+   least one; its file holds every epoch; its kp blocks and its fallback
+   blocks each meet the engine bar against the CPU's file (both routes
+   are float-carrier engines); the PRNs allocated after the jump acquire
+   at their Doppler in the last block; and the direct engine's device
+   time for one fallback block (CUDA events).
 The JSON summary of the kernels (with each one's bound: the larger of
 its float32 operations over the card's FP32 peak and its bytes over the
-HBM rate, see `kp_bound`, `planes_bound` and `gather_bytes`) and the
-card's name and power limit are the two lines before the last; the last
-line is {"ok": true, "device": {...}}.
+HBM rate, see `kp_bound`, `planes_bound` and `gather_bytes`; and its
+launch floor `floor_ms`: empty kernels of the same grids and block
+sizes, timed the same way) and the card's name and power limit are the
+two lines before the last; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -118,6 +133,7 @@ MIN_METRIC = 8.0
 MIN_METRIC_WEAK = 6.0
 E2E_RUNS = 3  # scenario runs through the CLI's build_run
 RANKS_TIMEOUT_S = 600  # the two-rank phase, both ranks together
+JUMP_CPU_TIMEOUT_S = 600  # the jump scene's --device cpu run, beside phase 8
 # channel counts of the synthetic checks: tools/probe_vec_kt.py's, from
 # few channels to all 16 slots
 KP_CS = (2, 8, 16)
@@ -224,19 +240,6 @@ def gather_bytes(idx: torch.Tensor, axis: int) -> int:
     return (int(torch.unique(flat).numel()) + 2 * idx.numel()) * 4
 
 
-def host_ms(fn, per: int = 10) -> float:
-    """Host time of one call to queue `fn` (no synchronize inside), the
-    mean over `per` calls: what back-to-back calls cost the host."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(per):
-        fn()
-    t = (time.perf_counter() - t0) / per * 1e3
-    torch.cuda.synchronize()
-    return t
-
-
 def main() -> int:
     # --- 1. the card -----------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device: this smoke run needs one GPU")
@@ -254,9 +257,10 @@ def main() -> int:
     install()  # JAX and the JAX package, before the rest of the port loads
     from galileo_sdr_sim_tpu_torch import cli
     from galileo_sdr_sim_tpu_torch.harness import (
-        CASES, FIXTURE_LLH, FIXTURE_START, KP_INSTANTIATIONS, PVT_SECONDS, PVT_START, AbsSumSink,
-        cboc_bar, engine_bar, fixture_engine, free_udp_ports, kp_digests, live_pickup, pvt_fix,
-        synthetic_kp_inputs,
+        CASES, FIXTURE_LLH, FIXTURE_START, JUMP_SECONDS, KP_INSTANTIATIONS, PVT_SECONDS, PVT_START,
+        AbsSumSink, acquire_block, cboc_bar, compare_jump_files, engine_bar, fixture_engine,
+        free_udp_ports, jump_scene_blocks, kp_digests, live_pickup, pvt_fix, synthetic_kp_inputs,
+        write_jump_motion,
     )
     from galileo_sdr_sim_tpu_torch.io.sinks import Sink
     from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
@@ -267,11 +271,11 @@ def main() -> int:
     from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
     from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
     from galileo_sdr_sim_tpu_torch.ops import bandlimit, gather_probe, measure, synth_kp_cuda
-    from galileo_sdr_sim_tpu_torch.ops.measure import median_ms
+    from galileo_sdr_sim_tpu_torch.ops.measure import floor_ms, host_ms, median_ms
     from galileo_sdr_sim_tpu_torch.ops.synth_kp_cuda import PLANES
     from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
-        kp_planes_ref, pack_iq, packed_to_iq16, prepare_kp_inputs, synth_kp_accum_ref,
-        synth_kp_int16_ref, synth_kp_packed_ref,
+        kp_planes_ref, mu_in_envelope, pack_iq, packed_to_iq16, prepare_kp_inputs,
+        synth_kp_accum_ref, synth_kp_int16_ref, synth_kp_packed_ref,
     )
     from galileo_sdr_sim_tpu_torch.parallel import distributed as D
     from galileo_sdr_sim_tpu_torch.parallel import mesh as M
@@ -282,11 +286,13 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(synth_kp_cuda.library), pool.submit(gather_probe.library)]
-        (_, built), (_, gbuilt) = (f.result() for f in builds)
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(synth_kp_cuda.library), pool.submit(gather_probe.library),
+                  pool.submit(measure.floor_library)]
+        (_, built), (_, gbuilt), (_, fbuilt) = (f.result() for f in builds)
     print(f"build: {built.path.name} in {built.seconds:.2f} s (fmad={synth_kp_cuda.FMAD}), "
-          f"{gbuilt.path.name} in {gbuilt.seconds:.2f} s, {time.perf_counter() - t0:.2f} s wall")
+          f"{gbuilt.path.name} in {gbuilt.seconds:.2f} s, {fbuilt.path.name} in "
+          f"{fbuilt.seconds:.2f} s, {time.perf_counter() - t0:.2f} s wall")
     print(built.log.strip())
     print(gbuilt.log.strip())
     # what the compiler made of each instantiation: registers and spills,
@@ -645,14 +651,30 @@ def main() -> int:
             wrapper = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
             kern = median_ms(lambda: wrapper(inputs, N_K))
             print(f"time {name} B=1 n_k={N_K} C=8: kernel {kern:.4f} ms ({gpu})")
+        # the pair of launches of a call, the prologue alone, the wrapper's
+        # host time a call, and the launch floors (empty kernels of the
+        # same grids and block sizes), at the file sink's block with 2, 8
+        # and 16 channels and at live mode's one-epoch block
         planes_inputs = timing_inputs["synth_kp_v5"][0]
-        planes_ms = median_ms(lambda: synth_kp_cuda.kp_planes(planes_inputs, N_K))
         planes_plain = median_ms(lambda: kp_planes_ref(planes_inputs, N_K))
+        floors = {}
+        for Bp, C in ((B, 2), (B, 8), (B, 16), (1, 8)):
+            inputs = (planes_inputs if (Bp, C) == (B, 8)
+                      else synthetic_kp_inputs(Bp, C, 100 + C, "random", dev))
+            geometry = synth_kp_cuda.launch_geometry(Bp, C, N_K)
+            pair = median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
+            pro = median_ms(lambda: synth_kp_cuda.kp_planes(inputs, N_K))
+            host = host_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
+            floors[(Bp, C)] = (floor_ms(geometry[:1]), floor_ms(geometry))
+            print(f"time pair B={Bp} n_k={N_K} C={C}: prologue and main kernel {pair:.4f} ms "
+                  f"(floor {floors[(Bp, C)][1]:.4f}), {PLANES} alone {pro:.4f} ms (floor "
+                  f"{floors[(Bp, C)][0]:.4f}; bound {planes_bound(inputs, N_K)[0]:.5f}), the "
+                  f"wrapper's host time {host:.4f} ms a call; grids {geometry} ({gpu})")
+            if (Bp, C) == (B, 8):
+                planes_ms = pro
+        planes_floor, pair_floor = floors[(B, 8)]
         print(f"time {PLANES} B={B} n_k={N_K} C=8: kernel {planes_ms:.4f} ms, plain "
               f"{planes_plain:.4f} ms ({gpu})")
-        inputs = synthetic_kp_inputs(1, 8, 108, "random", dev)
-        print(f"time {PLANES} B=1 n_k={N_K} C=8: kernel "
-              f"{median_ms(lambda: synth_kp_cuda.kp_planes(inputs, N_K)):.4f} ms ({gpu})")
         plain16 = median_ms(lambda: synth_kp_int16_ref(inputs16, N_K))
         kern16 = median_ms(lambda: synth_kp_cuda.synth_kp_int16(inputs16, N_K))
         print(f"time int16 view (cboc_gain) B={B} n_k={N_K} C=8: kernel {kern16:.4f} ms, "
@@ -675,7 +697,7 @@ def main() -> int:
         # the gather kernel on the probe's seven shapes, beside its plain
         # version (int32 indices, widened) and torch.take_along_dim (int64
         # indices made beforehand), timed as a yardstick only
-        gather = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        gather = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "floor_ms": 0.0}
         gen = torch.Generator().manual_seed(0)
         for shape, maxidx, axis in gather_probe.PROBES:
             tab, idx = (t.to(dev) for t in gather_probe.probe_inputs(shape, maxidx, gen))
@@ -685,12 +707,13 @@ def main() -> int:
                 "plain_ms": median_ms(lambda: gather_probe.take_along_axis_ref(tab, idx, axis)),
                 "library_ms": median_ms(lambda: torch.take_along_dim(tab, idx64, dim=axis)),
                 "bound_ms": bound(0, gather_bytes(idx, axis))[0],
+                "floor_ms": floor_ms([gather_probe.launch_geometry(*shape, axis)]),
             }
             for key, val in t_g.items():
                 gather[key] += val
             print(f"time gather {shape} axis={axis}: kernel {t_g['ms']:.5f} ms, plain "
                   f"{t_g['plain_ms']:.5f} ms, torch.take_along_dim {t_g['library_ms']:.5f} ms, "
-                  f"bound {t_g['bound_ms']:.6f} ms ({gpu})")
+                  f"bound {t_g['bound_ms']:.6f} ms, floor {t_g['floor_ms']:.5f} ms ({gpu})")
         rng = np.random.default_rng(0)
         stack = torch.from_numpy(
             rng.integers(-2500, 2500, (bandlimit.OS, B, 2 * 260000)).astype(np.int16)).to(dev)
@@ -754,6 +777,19 @@ def main() -> int:
               f"wall = {busy_us / 1e6 / wall:.2%} busy ({gpu})")
         for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
             print(f"  {us / 1e3:9.3f} ms  {count:5d} x  {key[:100]}")
+
+        # the jump scene's CPU run (phase 9) goes beside phase 8's receiver
+        # runs, as a process of its own: the CLI with --device cpu
+        jump_motion = write_jump_motion(Path(tmp) / "jump.csv")
+        jump_argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-d", str(JUMP_SECONDS),
+                     "-t", FIXTURE_START, "-l", llh, "-u", jump_motion]
+        jump_cpu = Path(tmp) / "jump_cpu.ishort"
+        t_jump_cpu = time.perf_counter()
+        cpu_run = subprocess.Popen(
+            [sys.executable, "-m", "galileo_sdr_sim_tpu_torch", *jump_argv, "-o", str(jump_cpu),
+             "--device", "cpu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+            env={**os.environ, "OMP_NUM_THREADS": "4"})
 
         # --- 8. the acceptance tier and the stream modes ------------------
         def drive(argv: list, label: str) -> dict:
@@ -908,25 +944,82 @@ def main() -> int:
             print(f"e2e file sink depth {depth}, 30 s: median {np.median(r):.0f} min {min(r):.0f} "
                   f"max {max(r):.0f} samples/s of {len(r)} runs ({gpu})")
 
+        # --- 9. the direct fallback through the CLI ------------------------
+        try:
+            cpu_out = cpu_run.communicate(timeout=JUMP_CPU_TIMEOUT_S)[0]
+        finally:
+            cpu_run.kill()
+            cpu_run.wait()
+        print(f"jump scene --device cpu: rc={cpu_run.returncode}, done within "
+              f"{time.perf_counter() - t_jump_cpu:.1f} s of its start")
+        check(cpu_run.returncode == 0, f"the CLI with --device cpu failed:\n{cpu_out[-3000:]}")
+        blocks = jump_scene_blocks(NAV, jump_motion)
+        n_fallback = sum(b["fallback"] for b in blocks)
+        print(f"jump scene: {sum(b['epochs'] for b in blocks)} epochs in {len(blocks)} blocks, "
+              f"{n_fallback} outside the envelope (first epochs "
+              f"{[b['first'] for b in blocks if b['fallback']]}), "
+              f"{len({tuple(b['prn']) for b in blocks})} channel maps")
+        check(n_fallback >= 1, "the jump scene has no block outside the envelope")
+        jump_card = Path(tmp) / "jump_card.ishort"
+        counts = drive([*jump_argv, "-o", str(jump_card)], "jump scene (no --device)")
+        only(counts, "synth_kp_v5", len(blocks) - n_fallback, "jump scene")
+        tally(counts)
+        cmp_ = compare_jump_files(jump_card, jump_cpu, blocks)
+        print(f"jump scene card vs --device cpu: every epoch present={cmp_['complete']}, "
+              f"{cmp_['kp_blocks']} kp blocks {cmp_.get('kp')}, {cmp_['fallback_blocks']} fallback "
+              f"blocks {cmp_.get('fallback')}")
+        check(cmp_["complete"], "a jump-scene file does not hold every epoch")
+        check(cmp_["kp"]["ok"] and cmp_["fallback"]["ok"], f"jump scene, card against CPU: {cmp_}")
+        check(cmp_["fallback_blocks"] == n_fallback >= 1, "fallback blocks")
+        last = blocks[-2] if blocks[-1]["epochs"] < B else blocks[-1]
+        check(not last["fallback"] and tuple(last["prn"]) != tuple(blocks[0]["prn"]),
+              "the last full block is not a kp block of the reallocated channels")
+        for a in acquire_block(jump_card, last):
+            print(f"acquire jump scene, epoch {last['first']}, PRN {a['prn']:2d}: metric "
+                  f"{a['metric']:6.1f} doppler {a['doppler']:7.0f} (engine {a['f_carr']:8.1f})")
+            check(a["metric"] >= MIN_METRIC, f"jump scene: PRN {a['prn']} not acquired")
+            check(abs(a["doppler"] - a["f_carr"]) <= 100.0, f"jump scene: PRN {a['prn']} Doppler")
+        # the direct engine's device time for one fallback block: its
+        # epochs' operands prepared on the card first, then the
+        # `synth_block` calls of the block between two CUDA events
+        from galileo_sdr_sim_tpu_torch.io.stream import _slice_epoch
+        from galileo_sdr_sim_tpu_torch.ops.synth import TILE, prepare_device_inputs, synth_block
+
+        engine, _ = cli.build_engine(cli.build_torch_parser().parse_args(jump_argv))
+        batch = next(b for b in engine.batches(B) if not mu_in_envelope(b.f_code))
+        n_real = batch.f_code.shape[0]
+        epochs_in = [prepare_device_inputs(_slice_epoch(batch, e), TILE, NSAMP, pad_epochs=1,
+                                           device=dev) for e in range(n_real)]
+        direct_ms = median_ms(lambda: [synth_block(x, tile=TILE, mode="float") for x in epochs_in],
+                              n=10, per=1)
+        print(f"time direct engine, one fallback block of {n_real} epochs x "
+              f"{batch.prn.size} channels: {direct_ms:.4f} ms on the card, "
+              f"{direct_ms / n_real:.4f} ms an epoch ({gpu})")
+
     kp_source = "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu"
 
-    def entry(name, source, replaces, n_launch, err, ms, plain_ms, bound_, library_ms=None):
+    def entry(name, source, replaces, n_launch, err, ms, plain_ms, bound_, floor, library_ms=None):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_[0], "bound_by": bound_[1], "library_ms": library_ms}
+                "bound_ms": bound_[0], "bound_by": bound_[1], "floor_ms": floor,
+                "library_ms": library_ms}
 
     entries = []
     for name in (*VARIANTS, *F32):
         inputs, f32 = timing_inputs[name]
         entries.append(entry(name, kp_source, synth_kp_cuda.REPLACES[name], launches[name],
-                             worst[name], *times[(name, 8)], kp_bound(inputs, N_K, f32)))
+                             worst[name], *times[(name, 8)], kp_bound(inputs, N_K, f32),
+                             pair_floor))
     entries.append(entry("synth_kp_v5_int16", kp_source, synth_kp_cuda.INT16_REPLACES,
-                         launches_int16, worst_int16, kern16, plain16, kp_bound(inputs16, N_K)))
+                         launches_int16, worst_int16, kern16, plain16, kp_bound(inputs16, N_K),
+                         pair_floor))
     entries.append(entry(PLANES, kp_source, synth_kp_cuda.REPLACES[PLANES], launches[PLANES],
-                         worst_planes, planes_ms, planes_plain, planes_bound(planes_inputs, N_K)))
+                         worst_planes, planes_ms, planes_plain, planes_bound(planes_inputs, N_K),
+                         planes_floor))
     entries.append(entry("gather_probe", "galileo_sdr_sim_tpu_torch/csrc/gather_probe.cu",
                          gather_probe.REPLACES, launches["gather_probe"], 0, gather["ms"],
-                         gather["plain_ms"], (gather["bound_ms"], "bytes"), gather["library_ms"]))
+                         gather["plain_ms"], (gather["bound_ms"], "bytes"), gather["floor_ms"],
+                         gather["library_ms"]))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched by its main path")
     print(json.dumps({"kernels": entries}))

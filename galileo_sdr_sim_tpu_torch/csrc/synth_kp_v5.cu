@@ -1,5 +1,6 @@
 // Factorized (K, p) Galileo E1 synthesis for NVIDIA Hopper (sm_90a), in
-// two kernels launched one after the other on the caller's stream.
+// two kernels that one entry point launches on the caller's stream, the
+// second as a programmatic dependent of the first.
 //
 // Replaces the Pallas TPU kernel `_kernel_v5` of
 // galileo_sdr_sim_tpu/ops/synth_kp_pallas.py in six instantiations of
@@ -39,7 +40,18 @@
 //   the wrapper allocates: psi, w8, cos p, sin p (one float4), the chip
 //   words of the 8 rows (two uint4) and the bits word; and once per
 //   (b, c, K) the K factor cis(2*pi*frac(fc_k*K)) (a float2).  At B = 8,
-//   C = 8 that is 4.8 MB, which stays in L2 for the main kernel.
+//   C = 8 that is 4.8 MB, which stays in L2 for the main kernel.  One
+//   thread a column p, 128 columns a block; the nine (b, c) operands are
+//   loaded once a block into shared memory; a column's 32 taps (bytes of
+//   32 rows of the window table, 11904 bytes apart) are loaded from one
+//   address with immediate offsets, the table's width being a
+//   compile-time constant; the K factors have blocks of their own behind
+//   the column tiles of the same launch, so no thread computes two
+//   sin/cos pairs in a row.  Its time is what its launch, its two trips
+//   to memory in a row (operands, then taps) and its stores take, not
+//   its bytes or its instructions: see PERF.md for what was measured
+//   (a thread per (row, column), and a window staged in shared memory
+//   with cp.async, were both slower).
 // * synth_kp_v5_kernel, one block per (p tile of 128 columns, epoch b,
 //   chunk of k_chunk K rows), one thread per column p, copies its tile of
 //   planes and its K factors into shared memory with coalesced loads and
@@ -47,6 +59,18 @@
 //   p.  It computes no sin/cos and reads no strided byte, so the wrapper
 //   cuts K as finely as it needs to fill the SMs: k_chunk follows B
 //   (8 at B = 1: 11 x 25 = 275 blocks; 40 at B = 8: 440).
+// * The pair: synth_kp_v5_pair_launch launches both.  The main kernel is
+//   launched with cudaLaunchKernelEx and the programmatic stream
+//   serialization attribute, so the card sets its blocks up while the
+//   prologue runs; each block waits on the grid dependency
+//   (griddepcontrol.wait) before its first read of the planes, which it
+//   reads from L2.  The prologue signals (griddepcontrol.
+//   launch_dependents) after its last store: signalling at its start let
+//   main-kernel blocks take the SMs ahead of prologue blocks and cost up
+//   to 40% at C = 2 (PERF.md).  The shared-memory attribute of an
+//   instantiation is raised once per size and device, not every launch.
+//   The main kernel's launch bounds name six blocks an SM, which pins
+//   every instantiation at 80 registers.
 // * The main loop (the TPU's v6 schedule): the block's rows in groups of
 //   eight, one kap (K = 8*kap + rho), eight I and eight Q accumulators in
 //   registers; the channels ascending in the outer loop; each channel's
@@ -207,49 +231,45 @@ __device__ __forceinline__ void grid_dependency_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-// the prologue's blocks: PRO_COLS columns p by the eight rows rho, one
-// warp a row; after the PRO_TILES column tiles of a (b, c) come the
-// blocks of its K factors
-constexpr int PRO_COLS = 32;
-constexpr int PRO_THREADS = PRO_COLS * ROWS;
-constexpr int PRO_TILES = (P_GRID + PRO_COLS - 1) / PRO_COLS;
+// columns of the window table (ops/synth_kp.T_RS), a compile-time
+// constant: the 32 taps of a column lie T_RS bytes apart, so their loads
+// differ by immediate offsets from one address
+constexpr int T_RS = 11904;
 
+// the prologue's grid: the P_TILES column tiles of every (b, c), then the
+// blocks of its K factors, one row K a thread
 __host__ __device__ inline dim3 planes_grid(int B, int C, int n_k) {
-  return dim3(PRO_TILES + (n_k + PRO_THREADS - 1) / PRO_THREADS, B, C);
+  return dim3(P_TILES + (n_k + P_TILE - 1) / P_TILE, B, C);
 }
 
 // the (b, c) operands a column block keeps in shared memory, as words
 enum { S_CP0, S_TWO_A, S_MU, S_G0, S_O, S_R, S_CARR0, S_FC, S_COUNT };
 
-// The prologue (_kernel_v5 lines 124-170).  A column block takes
-// PRO_COLS columns p of one (epoch b, channel c): thread (rho, p) selects
-// row rho's four taps of column p from the window table (one byte each,
-// a warp's 32 threads on 32 neighbouring bytes) and packs its chip word;
-// while those loads are in flight warp 0 computes the column's psi, w8
-// and carrier p factor and warp 1 its bits word; warps 2 and 3 gather
-// the eight chip words of a column from shared memory into the two uint4
-// stores.  The blocks after the column tiles compute the K factors, one
-// row K a thread.  Every value is the expression of _kernel_v5, in its
-// order: only who computes it changed.  Columns 1300.. of the scratch
-// are left unwritten; the main kernel does not read them.
-__global__ void __launch_bounds__(PRO_THREADS) kp_planes_kernel(
+// The prologue (_kernel_v5 lines 124-170): a column block per (p tile,
+// epoch b, channel c), one thread a column p; after the column tiles, the
+// blocks of the K factors.  The nine (b, c) operands are loaded once a
+// block; the 32 tap loads of a column are issued together, from one
+// address with immediate offsets, ahead of the carrier factor's sin/cos;
+// no thread computes a K factor ahead of its column.  Every value is the
+// expression of _kernel_v5, in its order.
+__global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
     const float* __restrict__ cp0, const float* __restrict__ two_a,
     const float* __restrict__ mu, const float* __restrict__ g0,
     const int* __restrict__ o, const float* __restrict__ r,
     const float* __restrict__ carr0, const float* __restrict__ fc,
     const float* __restrict__ fc_k, const int8_t* __restrict__ vpack_rs,
-    unsigned char* __restrict__ planes, int B, int C, int n_k, int t_rs) {
+    unsigned char* __restrict__ planes, int B, int C, int n_k) {
   const Planes q = carve_planes(planes, B, C);
   const int tid = threadIdx.x;
   const int c = blockIdx.z;
   const int bc = blockIdx.y * C + c;
   const float two_pi = (float)6.283185307179586;  // float32(2*pi)
 
-  if (blockIdx.x >= PRO_TILES) {
+  if (blockIdx.x >= P_TILES) {
     // K-factor table: cis(2*pi*frac(fc_k * K))
     const float fck = fc_k[bc];
-    const int stride = (gridDim.x - PRO_TILES) * PRO_THREADS;
-    for (int K = (blockIdx.x - PRO_TILES) * PRO_THREADS + tid; K < n_k; K += stride) {
+    const int stride = (gridDim.x - P_TILES) * P_TILE;
+    for (int K = (blockIdx.x - P_TILES) * P_TILE + tid; K < n_k; K += stride) {
       float ph = fck * (float)K;
       ph = ph - floorf(ph);
       const float ang = two_pi * ph;
@@ -260,7 +280,6 @@ __global__ void __launch_bounds__(PRO_THREADS) kp_planes_kernel(
   }
 
   __shared__ uint32_t s_op[S_COUNT];
-  __shared__ uint32_t s_words[ROWS][PRO_COLS];
   if (tid < S_COUNT) {
     // one load a thread: the operand is chosen by selects, not branches
     const void* src = tid == S_CP0     ? static_cast<const void*>(cp0)
@@ -275,70 +294,69 @@ __global__ void __launch_bounds__(PRO_THREADS) kp_planes_kernel(
   }
   __syncthreads();
 
-  const int lane = tid % PRO_COLS;
-  const int rho = tid / PRO_COLS;
-  const int p = blockIdx.x * PRO_COLS + lane;
-  const bool live = p < P_GRID;
+  const int p = blockIdx.x * P_TILE + tid;
   const size_t at = (size_t)bc * P_PAD + p;
+  if (p >= P_GRID) {
+    q.plf[at] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    q.chip[((size_t)bc * 2) * P_PAD + p] = make_uint4(0u, 0u, 0u, 0u);
+    q.chip[((size_t)bc * 2 + 1) * P_PAD + p] = make_uint4(0u, 0u, 0u, 0u);
+    q.bits[at] = 0u;
+    grid_launch_dependents();
+    return;
+  }
   const float inv_nper = 1.0f / NPER;
   const float s_ratio = (float)(1023.0 / 1300.0);
   const float pp = (float)p;
   const float mu_c = __uint_as_float(s_op[S_MU]);
   const float phi = 2.0f * __uint_as_float(s_op[S_CP0]) + __uint_as_float(s_op[S_TWO_A]) * pp;
   const float gb = floorf(phi) + (mu_c < 0.0f ? -1.0f : 0.0f);
+  const float psi = phi - gb;
+  const float gbm = gb - NPER * floorf(gb * inv_nper);
+  const float w8 = gb >= NPER ? 1.0f : 0.0f;
   const float s_p = floorf(pp * s_ratio);
   const float m_p = (float)COLS * pp - (float)P_GRID * s_p;
   const float kap_p = m_p + __uint_as_float(s_op[S_R]) >= (float)P_GRID ? 1.0f : 0.0f;
   const float e2 = (gb - __uint_as_float(s_op[S_G0])) - s_p - kap_p;
 
-  // 5-tap select: rows j*32 + rho, + 8, + 16, + 24 of column o + p,
-  // j = e2 + 2
-  int a0b = 0, a1b = 0, a0c = 0, a1c = 0;
+  // 5-tap select: rows j*32 .. j*32+31 of column o + p, j = e2 + 2; the
+  // loads are issued before the carrier factor's sin/cos, which run while
+  // they are in flight
+  int8_t v[W_PACK];
   const int j = (int)e2 + 2;
-  if (live && j >= 0 && j < J_RS) {
-    const int8_t* src = vpack_rs +
-                        ((size_t)c * W_RS + (size_t)j * W_PACK + rho) * t_rs +
-                        (int)s_op[S_O] + p;
-    a0b = src[0];
-    a1b = src[(size_t)ROWS * t_rs];
-    a0c = src[(size_t)2 * ROWS * t_rs];
-    a1c = src[(size_t)3 * ROWS * t_rs];
-  }
-
-  if (rho == 0 && live) {
-    const float psi = phi - gb;
-    const float w8 = gb >= NPER ? 1.0f : 0.0f;
-    float ph_p = __uint_as_float(s_op[S_CARR0]) + __uint_as_float(s_op[S_FC]) * pp;
-    ph_p = ph_p - floorf(ph_p);
-    const float ang_p = two_pi * ph_p;
-    q.plf[at] = make_float4(psi, w8, cosf(ang_p), sinf(ang_p));
-  } else if (rho == 1 && live) {
-    const float gbm = gb - NPER * floorf(gb * inv_nper);
-    uint32_t bw = 0;
+  if (j >= 0 && j < J_RS) {
+    const int8_t* src =
+        vpack_rs + ((size_t)c * W_RS + (size_t)j * W_PACK) * T_RS + (int)s_op[S_O] + p;
 #pragma unroll
-    for (int row = 0; row < ROWS; ++row) {
-      // b1 >= b0 for every gbm (gbm + 1 >= gbm in float32), so b1 - b0 is
-      // 0 or 1: one bit
-      const float thr = (float)COLS * ((float)ROWS - (float)row);
-      const uint32_t b0 = gbm >= thr ? 1u : 0u;
-      const uint32_t b1 = gbm + 1.0f >= thr ? 1u : 0u;
-      bw |= b0 << row;
-      bw |= (b1 - b0) << (8 + row);
-    }
-    const float pgb = gb - 2.0f * floorf(gb * 0.5f);  // exact: gb is an integer
-    bw |= (pgb != 0.0f ? 1u : 0u) << 16;
-    q.bits[at] = bw;
+    for (int k = 0; k < W_PACK; ++k) v[k] = src[k * T_RS];
+  } else {
+#pragma unroll
+    for (int k = 0; k < W_PACK; ++k) v[k] = 0;
   }
+  float ph_p = __uint_as_float(s_op[S_CARR0]) + __uint_as_float(s_op[S_FC]) * pp;
+  ph_p = ph_p - floorf(ph_p);
+  const float ang_p = two_pi * ph_p;
+  q.plf[at] = make_float4(psi, w8, cosf(ang_p), sinf(ang_p));
 
-  s_words[rho][lane] = chip_byte(a0b) | chip_byte(a1b - a0b) << 8 | chip_byte(a0c) << 16 |
-                       chip_byte(a1c - a0c) << 24;
-  __syncthreads();
-  if ((rho == 2 || rho == 3) && live) {
-    const int h = rho - 2;  // rows 4h .. 4h+3
-    q.chip[((size_t)bc * 2 + h) * P_PAD + p] =
-        make_uint4(s_words[4 * h][lane], s_words[4 * h + 1][lane], s_words[4 * h + 2][lane],
-                   s_words[4 * h + 3][lane]);
+  uint32_t words[ROWS];
+  uint32_t bw = 0;
+#pragma unroll
+  for (int rho = 0; rho < ROWS; ++rho) {
+    const int a0b = v[rho], a0c = v[16 + rho];
+    words[rho] = chip_byte(a0b) | chip_byte(v[8 + rho] - a0b) << 8 | chip_byte(a0c) << 16 |
+                 chip_byte(v[24 + rho] - a0c) << 24;
+    // b1 >= b0 for every gbm (gbm + 1 >= gbm in float32), so b1 - b0 is
+    // 0 or 1: one bit
+    const float thr = (float)COLS * ((float)ROWS - (float)rho);
+    const uint32_t b0 = gbm >= thr ? 1u : 0u;
+    const uint32_t b1 = gbm + 1.0f >= thr ? 1u : 0u;
+    bw |= b0 << rho;
+    bw |= (b1 - b0) << (8 + rho);
   }
+  const float pgb = gb - 2.0f * floorf(gb * 0.5f);  // exact: gb is an integer
+  bw |= (pgb != 0.0f ? 1u : 0u) << 16;
+  q.chip[((size_t)bc * 2) * P_PAD + p] = make_uint4(words[0], words[1], words[2], words[3]);
+  q.chip[((size_t)bc * 2 + 1) * P_PAD + p] = make_uint4(words[4], words[5], words[6], words[7]);
+  q.bits[at] = bw;
   grid_launch_dependents();
 }
 
@@ -420,8 +438,13 @@ __device__ __forceinline__ void main_loop(const Smem& s, void* __restrict__ out,
   }
 }
 
+// Six blocks an SM in the launch bounds give every instantiation 80
+// registers: left to itself the compiler took 64 to 80 from one small
+// change of the preamble to the next (with 4 B of spills at 72), and the
+// main loop's schedule, and with it up to 15% of the time at C = 16,
+// moved with them (PERF.md).
 template <bool CBOC, bool GAIN, bool F32>
-__global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
+__global__ void __launch_bounds__(P_TILE, 6) synth_kp_v5_kernel(
     const float* __restrict__ mu, const int* __restrict__ sym_bits,
     const int* __restrict__ pil_bits, const float* __restrict__ chan_gain,
     const unsigned char* planes, void* __restrict__ out, float alpha, float beta, int B, int C,
@@ -436,20 +459,14 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(n_k, k_begin + k_chunk);
 
-  // what the block needs that the prologue does not write: the (b, c)
-  // scalars, loaded while the prologue may still be running
-  for (int c = tid; c < C; c += P_TILE) {
-    const int bc = b * C + c;
-    s.scal[c] = make_float4(mu[bc], __int_as_float(sym_bits[bc]), __int_as_float(pil_bits[bc]),
-                            GAIN ? chan_gain[bc] : 1.0f);
-  }
+  // the prologue may still be running when this block starts: wait for
+  // its grid before the first read of what it wrote
   grid_dependency_wait();
 
-  // the block's tile of the planes, coalesced along p (the prologue
-  // writes columns 0..1299 only).  The planes were written while this
-  // kernel was already resident, so they are read from L2 (__ldcg), never
-  // through the read-only path
-  for (int c = 0; c < C && p < P_GRID; ++c) {
+  // the block's tile of the planes, coalesced along p.  The planes were
+  // written while this kernel was already resident, so they are read from
+  // L2 (__ldcg), never through the read-only path
+  for (int c = 0; c < C; ++c) {
     const size_t bc = (size_t)b * C + c;
     s.plf[c * P_TILE + tid] = __ldcg(&q.plf[bc * P_PAD + p]);
     s.chip[(c * 2) * P_TILE + tid] = __ldcg(&q.chip[(bc * 2) * P_PAD + p]);
@@ -459,7 +476,13 @@ __global__ void __launch_bounds__(P_TILE) synth_kp_v5_kernel(
   for (int i = tid; i < C * k_chunk; i += P_TILE) {
     const int c = i / k_chunk;
     const int K = k_begin + i % k_chunk;
-    s.cisk[i] = K < n_k ? __ldcg(&q.cisk[((size_t)b * C + c) * n_k + K]) : make_float2(0.0f, 0.0f);
+    s.cisk[i] =
+        K < n_k ? __ldcg(&q.cisk[((size_t)b * C + c) * n_k + K]) : make_float2(0.0f, 0.0f);
+  }
+  for (int c = tid; c < C; c += P_TILE) {
+    const int bc = b * C + c;
+    s.scal[c] = make_float4(mu[bc], __int_as_float(sym_bits[bc]), __int_as_float(pil_bits[bc]),
+                            GAIN ? chan_gain[bc] : 1.0f);
   }
   __syncthreads();
   if (p >= P_GRID) return;
@@ -504,9 +527,9 @@ struct Operands {
 
 int launch_planes(const Operands& a, unsigned char* planes, int B, int C, int n_k, int t_rs,
                   cudaStream_t stream) {
-  kp_planes_kernel<<<planes_grid(B, C, n_k), PRO_THREADS, 0, stream>>>(
-      a.cp0, a.two_a, a.mu, a.g0, a.o, a.r, a.carr0, a.fc, a.fc_k, a.vpack_rs, planes, B, C, n_k,
-      t_rs);
+  if (t_rs != T_RS) return (int)cudaErrorInvalidValue;
+  kp_planes_kernel<<<planes_grid(B, C, n_k), P_TILE, 0, stream>>>(
+      a.cp0, a.two_a, a.mu, a.g0, a.o, a.r, a.carr0, a.fc, a.fc_k, a.vpack_rs, planes, B, C, n_k);
   return (int)cudaGetLastError();
 }
 
@@ -545,7 +568,7 @@ size_t synth_kp_v5_planes_bytes(int B, int C, int n_k) { return planes_bytes(B, 
 // block size, then the main kernel's.
 void synth_kp_v5_geometry(int B, int C, int n_k, int k_chunk, int* out8) {
   const dim3 pro = planes_grid(B, C, n_k);
-  const int geometry[8] = {(int)pro.x, (int)pro.y, (int)pro.z, PRO_THREADS,
+  const int geometry[8] = {(int)pro.x, (int)pro.y, (int)pro.z, P_TILE,
                            P_TILES,    B,          (n_k + k_chunk - 1) / k_chunk, P_TILE};
   for (int i = 0; i < 8; ++i) out8[i] = geometry[i];
 }

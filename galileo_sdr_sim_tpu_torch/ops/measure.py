@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import re
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -63,6 +64,22 @@ def median_ms(fn, n: int = 25, per: int = 10, warmup: int = 3) -> float:
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / per)
+    return float(np.median(times))
+
+
+def host_ms(fn, per: int = 10, n: int = 25) -> float:
+    """Host time of one call to queue `fn` (no synchronize inside): the
+    median over n samples of the mean over `per` back-to-back calls, what
+    a wrapper call costs the host."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per):
+            fn()
+        times.append((time.perf_counter() - t0) / per * 1e3)
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 

@@ -5,9 +5,13 @@ They replace the Pallas TPU kernel `_kernel_v5`
 (`kp_planes_kernel`, the kernel's per-(channel, p) planes) and the main
 kernel in six instantiations, chosen by the operands and the emit:
 sine-BOC or CBOC (`cboc_ab` in the inputs), without or with per-channel
-gain (`chan_gain`), packed or float32.  Every call launches both, one
-after the other on the current stream, with a planes scratch allocated
-here.  Every instantiation runs the TPU kernel's K-vectorised main loop
+gain (`chan_gain`), packed or float32.  Every call launches both through
+one entry point of the library (`synth_kp_v5_pair_launch`), on the
+current stream, with a planes scratch allocated here: the prologue, one
+thread a column with the K factors in blocks of their own, and the main
+kernel as its programmatic dependent (its blocks are set up while the
+prologue runs and wait on the grid dependency before they read the
+planes).  The operands are checked once a call.  Every instantiation runs the TPU kernel's K-vectorised main loop
 (`vec_kt=True`, synth_kp_pallas.py:180-259), whose values are those of
 its default per-row loop bit for bit, so there is no `vec_kt` option
 here.  Per block of B epochs `synth_kp_packed` writes (B, n_k, 1300)
@@ -65,9 +69,6 @@ FMAD = True
 P_TILE = 128  # columns p a block of the main kernel takes
 P_TILES = -(-P_GRID // P_TILE)  # 11 blocks along p
 K_CHUNK = 40  # most K rows a block of the main kernel takes
-PRO_COLS = 32  # columns p a block of the prologue takes, by the 8 rows rho
-PRO_THREADS = PRO_COLS * ROWS
-PRO_TILES = -(-P_GRID // PRO_COLS)  # 41 column blocks, then the K-factor blocks
 MIN_BLOCKS = 2 * 132  # two blocks per SM of an H100
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -115,10 +116,10 @@ def k_chunk(B: int, C: int, n_k: int = K_EPOCH) -> int:
 def launch_geometry(B: int, C: int, n_k: int = K_EPOCH, chunk: int | None = None) -> tuple:
     """((grid, threads) of the prologue, (grid, threads) of the main
     kernel) of one call (the source's synth_kp_v5_geometry): the prologue
-    takes 41 column tiles and the K-factor blocks of every (b, c), the
-    main kernel 11 column tiles by B epochs by the K chunks."""
+    takes the 11 column tiles and then the K-factor blocks of every
+    (b, c), the main kernel 11 column tiles by B epochs by the K chunks."""
     chunk = k_chunk(B, C, n_k) if chunk is None else chunk
-    return (((PRO_TILES + -(-n_k // PRO_THREADS), B, C), PRO_THREADS),
+    return (((P_TILES + -(-n_k // P_TILE), B, C), P_TILE),
             ((P_TILES, B, -(-n_k // chunk)), P_TILE))
 
 

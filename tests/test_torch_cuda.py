@@ -329,28 +329,98 @@ def test_nccl_refuses_two_ranks_on_one_gpu(gpu, tmp_path):
 
 
 def test_launch_refuses_a_chunk_off_the_kap_grid(gpu):
-    """The main loop takes rows in groups of 8: the launch refuses a K
-    chunk that is not a multiple of 8 (the wrapper never asks for one)."""
+    """The main loop takes rows in groups of 8: the entry point of the pair
+    refuses a K chunk that is not a multiple of 8 (the wrapper never asks
+    for one) before it launches anything, and a window table of another
+    width than the source's T_RS."""
     lib, _ = synth_kp_cuda.library()
     inputs = synthetic_kp_inputs(8, 8, 42, "random", gpu)
-    planes = synth_kp_cuda._launch_planes(lib, inputs, N_K)
-    out = torch.empty((8, N_K, 1300), dtype=torch.int32, device=gpu)
-    stream = torch.cuda.current_stream(gpu).cuda_stream
+    before = dict(synth_kp_cuda.launch_counts)
     for chunk in (36, 0):
-        err = lib.synth_kp_v5_launch(
-            inputs["mu"].data_ptr(), inputs["sym_bits"].data_ptr(), inputs["pil_bits"].data_ptr(),
-            None, planes.data_ptr(), out.data_ptr(), 0.0, 0.0, 0, 0, 8, 8, N_K, chunk, stream)
-        assert err != 0
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            synth_kp_cuda._launch(lib, inputs, N_K, chunk=chunk)
+    planes = torch.empty(synth_kp_cuda.planes_bytes(8, 8, N_K), dtype=torch.uint8, device=gpu)
+    err = lib.synth_kp_v5_planes_launch(
+        *(inputs[k].data_ptr() for k in synth_kp_cuda.PLANE_OPERANDS),
+        inputs["vpack_rs"].data_ptr(), planes.data_ptr(), 8, 8, N_K, tkp.T_RS - 16,
+        torch.cuda.current_stream(gpu).cuda_stream)
+    assert err != 0
+    assert synth_kp_cuda.launch_counts == before
 
 
 def test_sizes_agree_with_the_source(gpu):
-    """The wrapper's shared-memory and scratch sizes are the source's."""
+    """The wrappers' shared-memory and scratch sizes and launch geometry
+    are the sources'."""
+    import ctypes
+
     lib, _ = synth_kp_cuda.library()
     for C in (1, 2, 8, 16):
         for k in (8, 16, 40):
             assert lib.synth_kp_v5_smem_bytes(C, k) == synth_kp_cuda.smem_bytes(C, k)
         for B in (1, 8):
             assert lib.synth_kp_v5_planes_bytes(B, C, N_K) == synth_kp_cuda.planes_bytes(B, C, N_K)
+            for n_k in (8, N_K, 240):
+                out = (ctypes.c_int * 8)()
+                chunk = synth_kp_cuda.k_chunk(B, C, n_k)
+                lib.synth_kp_v5_geometry(B, C, n_k, chunk, out)
+                pro, main = synth_kp_cuda.launch_geometry(B, C, n_k)
+                assert tuple(out) == (*pro[0], pro[1], *main[0], main[1])
+    glib, _ = gather_probe.library()
+    for rows, cols, axis in [(*shape, axis) for shape, _, axis in gather_probe.PROBES] + [
+            (40, 72, 0), (3, 2052, 1), (130, 36, 0)]:
+        out = (ctypes.c_int * 4)()
+        glib.gather_probe_geometry(rows, cols, axis, out)
+        grid, threads = gather_probe.launch_geometry(rows, cols, axis)
+        assert tuple(out) == (*grid, threads)
+        assert glib.gather_probe_tile_bytes(rows, cols, axis) == gather_probe.tile_bytes(rows, cols, axis)
+
+
+@pytest.mark.parametrize("name", list(KP_INSTANTIATIONS))
+def test_pair_on_another_stream_and_thread_gives_the_same_bytes(gpu, name):
+    """The pair of launches (the main kernel a programmatic dependent of
+    the prologue) on the default stream, on a stream of its own, and from
+    a second thread on a stream of its own, 20 calls in a row each: every
+    output equals the first byte for byte, with one prologue launch for
+    every main launch."""
+    import threading
+
+    variant, f32 = KP_INSTANTIATIONS[name]
+    fn = synth_kp_cuda.synth_kp_accum if f32 else synth_kp_cuda.synth_kp_packed
+    cases = [synthetic_kp_inputs(B, 8, 29 + B, "random", gpu, **variant) for B in (8, 1)]
+    want = [fn(inputs, N_K) for inputs in cases]
+    torch.cuda.synchronize()
+    before = dict(synth_kp_cuda.launch_counts)
+
+    def burst(results: list) -> None:
+        with torch.cuda.device(gpu):
+            stream = torch.cuda.Stream(gpu)
+            stream.wait_stream(torch.cuda.default_stream(gpu))
+            with torch.cuda.stream(stream):
+                for _ in range(10):
+                    results.extend(fn(inputs, N_K) for inputs in cases)
+            stream.synchronize()
+
+    here, there = [], []
+    burst(here)
+    thread = threading.Thread(target=burst, args=(there,))
+    thread.start()
+    thread.join()
+    assert len(here) == len(there) == 20
+    for i, out in enumerate(here + there):
+        assert torch.equal(out, want[i % 2]), i
+    assert synth_kp_cuda.launch_counts[name] - before[name] == 40
+    assert synth_kp_cuda.launch_counts[synth_kp_cuda.PLANES] - before[synth_kp_cuda.PLANES] == 40
+
+
+def test_launch_floor_is_below_the_kernels(gpu):
+    """The empty kernel of the pair's grids takes less than the pair, and
+    more than nothing."""
+    from galileo_sdr_sim_tpu_torch.ops import measure
+
+    inputs = synthetic_kp_inputs(8, 8, 31, "random", gpu)
+    floor = measure.floor_ms(synth_kp_cuda.launch_geometry(8, 8, N_K))
+    pair = measure.median_ms(lambda: synth_kp_cuda.synth_kp_packed(inputs, N_K))
+    assert 0.0 < floor < pair, (floor, pair)
 
 
 @pytest.mark.parametrize("case", ["random", "edges", "negated_mu"])
@@ -400,6 +470,19 @@ def test_gather_kernel_equals_take_along_dim(gpu, probe):
     assert got.device == gpu and got.dtype == torch.int32
     assert torch.equal(got, torch.take_along_dim(tab.to(gpu), idx.to(gpu).long(), dim=axis))
     assert torch.equal(got.cpu(), gather_probe.take_along_axis_ref(tab, idx, axis))
+
+
+@pytest.mark.parametrize("shape, axis", [((40, 72), 0), ((40, 72), 1), ((3, 2052), 1),
+                                         ((130, 36), 0), ((1500, 32), 0), ((2, 57344), 1)])
+def test_gather_kernel_on_ragged_and_large_tiles(gpu, shape, axis):
+    """Partial column tiles and row chunks, a row longer than one block's
+    outputs, and slices above 48 KB of shared memory (192000 and 229376
+    bytes), with a few indices outside the table."""
+    gen = torch.Generator().manual_seed(5)
+    tab, idx = gather_probe.probe_inputs(shape, shape[axis], gen)
+    idx[0, :3] = torch.tensor([-1, shape[axis], 2**31 - 1], dtype=torch.int32)
+    got = gather_probe.take_along_axis(tab.to(gpu), idx.to(gpu), axis).cpu()
+    assert torch.equal(got, gather_probe.take_along_axis_ref(tab, idx, axis))
 
 
 def test_gather_probe_main_on_the_card(gpu, capsys):

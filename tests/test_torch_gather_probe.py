@@ -126,3 +126,90 @@ def test_main_reports_a_wrong_result_and_raises(monkeypatch, capsys):
     monkeypatch.setattr(gather_probe, "take_along_axis", broken)
     with pytest.raises(RuntimeError, match="launch failed"):
         gather_probe.main(["--device", "cpu"])
+
+
+# --- the kernel's tiling, emulated block by block -----------------------------
+
+
+def _tiled_gather(tab: np.ndarray, idx: np.ndarray, axis: int) -> tuple:
+    """The CUDA kernel's work in numpy, one block of `launch_geometry`'s
+    grid at a time: stage the block's slice of the table (`tile_bytes` of
+    it), read the block's indices four to a thread, gather from the slice
+    alone, 0 for an index outside the table -> (out, times each output
+    was written)."""
+    rows, cols = tab.shape
+    (gx, gy, gz), threads = gather_probe.launch_geometry(rows, cols, axis)
+    assert gz == 1 and threads == gather_probe.THREADS
+    out = np.full(tab.shape, 99, np.int32)
+    written = np.zeros(tab.shape, np.int64)
+    for by in range(gy):
+        for bx in range(gx):
+            if axis == 1:
+                tile = tab[by].copy()  # the whole row
+                c0, c1 = bx * gather_probe.OUT_TILE, min(cols, (bx + 1) * gather_probe.OUT_TILE)
+                where = (slice(by, by + 1), slice(c0, c1))
+                j = idx[where]
+                inside = (j >= 0) & (j < cols)
+                got = np.where(inside, tile[np.where(inside, j, 0)], 0)
+            else:
+                c0, c1 = bx * gather_probe.AX0_COLS, min(cols, (bx + 1) * gather_probe.AX0_COLS)
+                tile = tab[:, c0:c1].copy()  # every row of the block's columns
+                r0, r1 = by * gather_probe.AX0_ROWS, min(rows, (by + 1) * gather_probe.AX0_ROWS)
+                where = (slice(r0, r1), slice(c0, c1))
+                j = idx[where]
+                inside = (j >= 0) & (j < rows)
+                got = np.where(inside, tile[np.where(inside, j, 0), np.arange(c1 - c0)], 0)
+            assert tile.nbytes <= gather_probe.tile_bytes(rows, cols, axis)
+            out[where] = got
+            written[where] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("shape, maxidx, axis", [
+    *PROBES, ((40, 72), 40, 0), ((40, 72), 72, 1), ((3, 2052), 2052, 1), ((130, 36), 130, 0),
+])
+def test_tiling_covers_every_output_once_and_gathers_in_the_tile(shape, maxidx, axis):
+    """The seven probe shapes and four ragged ones (partial column tiles,
+    partial row chunks, a row longer than one block's outputs): every
+    output is written by exactly one block, from that block's slice."""
+    tab, idx = (t.numpy() for t in _inputs(shape, maxidx, seed=7))
+    out, written = _tiled_gather(tab, idx, axis)
+    assert (written == 1).all()
+    np.testing.assert_array_equal(out, np.take_along_axis(tab, idx, axis=axis))
+
+
+def test_tiling_geometry_of_the_probes():
+    geometry = [gather_probe.launch_geometry(*shape, axis)[0] for shape, _, axis in PROBES]
+    assert geometry == [(1, 8, 1), (1, 16, 1), (1, 8, 1), (1, 16, 1), (8, 16, 1), (8, 16, 1),
+                        (4, 4, 1)]
+    sizes = [gather_probe.tile_bytes(*shape, axis) for shape, _, axis in PROBES]
+    assert sizes == [512, 512, 1024, 2048, 32768, 32768, 16384]
+    assert max(sizes) <= gather_probe.SMEM_LIMIT
+
+
+def test_tiled_gather_gives_zero_outside_the_table():
+    for shape, axis in (((8, 128), 1), ((128, 128), 0)):
+        tab, idx = (t.numpy() for t in _inputs(shape, 128, seed=2))
+        idx[3, :4] = [-1, shape[axis], 2**31 - 1, -(2**31)]
+        out, _ = _tiled_gather(tab, idx, axis)
+        want = gather_probe.take_along_axis_ref(torch.from_numpy(tab), torch.from_numpy(idx), axis)
+        np.testing.assert_array_equal(out, want.numpy())
+        assert not out[3, :4].any()
+
+
+def test_kernel_refuses_what_its_tiles_do_not_take():
+    """Rows move 16 bytes at a time, and a block's slice must fit its
+    shared memory: the checks a CUDA call makes before it launches."""
+    tab, idx = _inputs((8, 128), 128)
+    gather_probe._check_tiles(tab, idx, 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gather_probe._check_tiles(tab[:, :126].contiguous(), idx[:, :126].contiguous(), 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_probe._check_tiles(tab.reshape(-1)[4:132].reshape(1, 128)[:, 1:125], idx, 1)
+    wide = torch.zeros((1, 4 * 60000), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        gather_probe._check_tiles(wide, wide, 1)
+    tall = torch.zeros((2000, 32), dtype=torch.int32)
+    gather_probe._check_tiles(tall, tall, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        gather_probe._check_tiles(tall, tall, 0)

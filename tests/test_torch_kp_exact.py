@@ -297,3 +297,77 @@ def test_kp_planes_on_the_cpu_is_the_plain_version():
     ref = tkp.kp_planes_ref(t, 8)
     assert synth_kp_cuda.launch_counts == before
     assert all(torch.equal(got[k], ref[k]) for k in ref)
+
+
+# --- the launch geometry of the pair ------------------------------------------
+
+
+@pytest.mark.parametrize("B, C, n_k", [(8, 8, 200), (1, 8, 200), (8, 2, 200), (8, 16, 200),
+                                       (2, 3, 8), (1, 1, 240)])
+def test_launch_geometry_of_the_pair(B, C, n_k):
+    """The prologue's grid holds the 11 column tiles of every (b, c), then
+    its K-factor blocks, in which the loop K = first + tid, first + tid +
+    stride, ... of the source reaches every row K < n_k exactly once; the
+    main kernel's grid is 11 column tiles by B epochs by the K chunks."""
+    (pro_grid, pro_threads), (main_grid, main_threads) = synth_kp_cuda.launch_geometry(B, C, n_k)
+    tiles = synth_kp_cuda.P_TILES
+    assert pro_threads == main_threads == synth_kp_cuda.P_TILE == 128
+    assert tiles * pro_threads >= 1300 > (tiles - 1) * pro_threads
+    assert pro_grid[1:] == (B, C) and pro_grid[0] > tiles
+    k_blocks = pro_grid[0] - tiles
+    seen = np.zeros(n_k, np.int64)
+    for bx in range(tiles, pro_grid[0]):
+        for tid in range(pro_threads):
+            for K in range((bx - tiles) * pro_threads + tid, n_k, k_blocks * pro_threads):
+                seen[K] += 1
+    assert (seen == 1).all()
+    chunk = synth_kp_cuda.k_chunk(B, C, n_k)
+    assert main_grid == (tiles, B, -(-n_k // chunk))
+    assert synth_kp_cuda.launch_geometry(B, C, n_k, chunk=8)[1][0] == (tiles, B, n_k // 8)
+
+
+def _encode_planes(planes: dict, B: int, C: int, n_k: int) -> torch.Tensor:
+    """The dict of `kp_planes_ref` -> a scratch in the layout the prologue
+    kernel writes (the inverse of `decode_planes`; columns 1300.. zeros)."""
+    pad = synth_kp_cuda.P_TILES * synth_kp_cuda.P_TILE
+    plf = np.zeros((B, C, pad, 4), F32)
+    plf[:, :, :1300] = planes["plf"].numpy()
+    chip = np.zeros((B, C, 2, pad, 4), np.int32)  # [b][c][h][p][word of rows 4h..4h+3]
+    chip[:, :, :, :1300] = planes["chip"].numpy().reshape(B, C, 2, 4, 1300).transpose(0, 1, 2, 4, 3)
+    bits_ = np.zeros((B, C, pad), np.int32)
+    bits_[:, :, :1300] = planes["bits"].numpy()
+    raw = np.concatenate([plf.view(np.int32).ravel(), chip.ravel(), bits_.ravel(),
+                          planes["cisk"].numpy().view(np.int32).ravel()])
+    return torch.from_numpy(raw.view(np.uint8))
+
+
+@pytest.mark.parametrize("B, C, n_k", [(2, 3, 16), (1, 8, 200)])
+def test_decode_planes_round_trip(B, C, n_k):
+    """kp_planes_ref's planes, written as the scratch the kernel fills and
+    decoded again, come back bit for bit (the integer planes exactly)."""
+    t = synthetic_kp_inputs(B, C, 23, "edges", torch.device("cpu"), cboc=True)
+    planes = tkp.kp_planes_ref(t, n_k)
+    scratch = _encode_planes(planes, B, C, n_k)
+    assert scratch.numel() == synth_kp_cuda.planes_bytes(B, C, n_k)
+    got = synth_kp_cuda.decode_planes(scratch, B, C, n_k)
+    for key in ("chip", "bits"):
+        assert got[key].dtype == torch.int32 and torch.equal(got[key], planes[key]), key
+    for key in ("plf", "cisk"):
+        assert np.array_equal(bits(got[key].numpy()), bits(planes[key].numpy())), key
+
+
+def test_the_check_runs_once_a_call_and_refuses_before_any_launch():
+    """The wrapper's operand check, on CPU tensors: each refusal names the
+    operand, and the counts stay as they were."""
+    t = synthetic_kp_inputs(2, 4, 3, "random", torch.device("cpu"), cboc=True, gain=True)
+    assert synth_kp_cuda._check(t, 16) == (2, 4)
+    before = dict(synth_kp_cuda.launch_counts)
+    for name, bad in (("mu", t["mu"].double()), ("o", t["o"].float()), ("fc", t["fc"][:1]),
+                      ("chan_gain", t["chan_gain"].t()), ("vpack_rs", t["vpack_rs"][:, :100]),
+                      ("cboc_ab", t["cboc_ab"].double())):
+        with pytest.raises(ValueError, match=name):
+            synth_kp_cuda._check({**t, name: bad}, 16)
+    for n_k in (0, 12, 248):
+        with pytest.raises(ValueError, match="n_k"):
+            synth_kp_cuda._check(t, n_k)
+    assert synth_kp_cuda.launch_counts == before
