@@ -248,7 +248,7 @@ enum { S_CP0, S_TWO_A, S_MU, S_G0, S_O, S_R, S_CARR0, S_FC, S_COUNT };
 // The prologue (_kernel_v5 lines 124-170): a column block per (p tile,
 // epoch b, channel c), one thread a column p; after the column tiles, the
 // blocks of the K factors.  The nine (b, c) operands are loaded once a
-// block; the 32 tap loads of a column are issued together, from one
+// block; the 32 tap loads of a column are sent off together, from one
 // address with immediate offsets, ahead of the carrier factor's sin/cos;
 // no thread computes a K factor ahead of its column.  Every value is the
 // expression of _kernel_v5, in its order.
@@ -319,7 +319,7 @@ __global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
   const float e2 = (gb - __uint_as_float(s_op[S_G0])) - s_p - kap_p;
 
   // 5-tap select: rows j*32 .. j*32+31 of column o + p, j = e2 + 2; the
-  // loads are issued before the carrier factor's sin/cos, which run while
+  // loads are sent off before the carrier factor's sin/cos, which run while
   // they are in flight
   int8_t v[W_PACK];
   const int j = (int)e2 + 2;

@@ -96,24 +96,22 @@ def floor_library() -> tuple[ctypes.CDLL, _build.Built]:
     return _floor_lib
 
 
-def floor_ms(launches, device: torch.device | None = None) -> float:
+def floor_ms(launches) -> float:
     """The launch floor of a kernel call: `median_ms` of empty kernels
-    launched back to back on the current stream, one for each
+    launched back to back on the current stream of the current device, one for each
     ((gx, gy, gz), threads) of `launches` (a wrapper's `launch_geometry`):
     what launches of these grids and block sizes take on the card when
     the kernels do nothing."""
     lib, _ = floor_library()
-    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
 
     def run() -> None:
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream().cuda_stream
         for grid, threads in launches:
             err = lib.launch_floor_launch(*grid, threads, stream)
             if err != 0:
                 raise RuntimeError(f"empty kernel {grid} x {threads}: CUDA error {err}")
 
-    with torch.cuda.device(device):
-        return median_ms(run)
+    return median_ms(run)
 
 
 def parse_sass(text: str) -> dict:

@@ -113,12 +113,12 @@ def k_chunk(B: int, C: int, n_k: int = K_EPOCH) -> int:
     return ROWS
 
 
-def launch_geometry(B: int, C: int, n_k: int = K_EPOCH, chunk: int | None = None) -> tuple:
+def launch_geometry(B: int, C: int, n_k: int = K_EPOCH) -> tuple:
     """((grid, threads) of the prologue, (grid, threads) of the main
     kernel) of one call (the source's synth_kp_v5_geometry): the prologue
     takes the 11 column tiles and then the K-factor blocks of every
     (b, c), the main kernel 11 column tiles by B epochs by the K chunks."""
-    chunk = k_chunk(B, C, n_k) if chunk is None else chunk
+    chunk = k_chunk(B, C, n_k)
     return (((P_TILES + -(-n_k // P_TILE), B, C), P_TILE),
             ((P_TILES, B, -(-n_k // chunk)), P_TILE))
 
@@ -218,21 +218,17 @@ def _launch_planes(lib: ctypes.CDLL, inputs: dict, n_k: int) -> torch.Tensor:
     return planes
 
 
-def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int, f32: bool = False,
-            chunk: int | None = None) -> torch.Tensor:
+def _launch(lib: ctypes.CDLL, inputs: dict, n_k: int, f32: bool = False) -> torch.Tensor:
     """One call of `lib`'s entry point for the pair: the prologue and then
     the instantiation the operands select, on the current stream of the
     inputs' device; the output and the planes scratch are allocated
     here, nothing is synchronized.  `f32`: the float32 store,
-    (B, n_k*1300, 2); else the packed one, (B, n_k, 1300) int32.
-    `chunk`: the K rows a main-kernel block takes, `k_chunk(B, C, n_k)`
-    unless given."""
+    (B, n_k*1300, 2); else the packed one, (B, n_k, 1300) int32."""
     global launch_count
     B, C = _check(inputs, n_k)
     name = instantiation(inputs, f32)
     device = inputs["cp0"].device
-    if chunk is None:
-        chunk = k_chunk(B, C, n_k)
+    chunk = k_chunk(B, C, n_k)
     if smem_bytes(C, chunk) > SMEM_LIMIT:
         raise ValueError(f"C={C} channels need {smem_bytes(C, chunk)} B of shared memory "
                          f"(> {SMEM_LIMIT})")

@@ -335,17 +335,27 @@ def test_launch_refuses_a_chunk_off_the_kap_grid(gpu):
     width than the source's T_RS."""
     lib, _ = synth_kp_cuda.library()
     inputs = synthetic_kp_inputs(8, 8, 42, "random", gpu)
-    before = dict(synth_kp_cuda.launch_counts)
-    for chunk in (36, 0):
-        with pytest.raises(RuntimeError, match="invalid argument"):
-            synth_kp_cuda._launch(lib, inputs, N_K, chunk=chunk)
     planes = torch.empty(synth_kp_cuda.planes_bytes(8, 8, N_K), dtype=torch.uint8, device=gpu)
-    err = lib.synth_kp_v5_planes_launch(
-        *(inputs[k].data_ptr() for k in synth_kp_cuda.PLANE_OPERANDS),
-        inputs["vpack_rs"].data_ptr(), planes.data_ptr(), 8, 8, N_K, tkp.T_RS - 16,
-        torch.cuda.current_stream(gpu).cuda_stream)
-    assert err != 0
-    assert synth_kp_cuda.launch_counts == before
+    out = torch.zeros((8, N_K, 1300), dtype=torch.int32, device=gpu)
+    stream = torch.cuda.current_stream(gpu).cuda_stream
+    operands = [inputs[k].data_ptr() for k in synth_kp_cuda.PLANE_OPERANDS]
+    table = inputs["vpack_rs"].data_ptr()
+
+    def pair(chunk: int, t_rs: int) -> int:
+        return lib.synth_kp_v5_pair_launch(
+            *operands, table, inputs["sym_bits"].data_ptr(), inputs["pil_bits"].data_ptr(), None,
+            planes.data_ptr(), out.data_ptr(), 0.0, 0.0, 0, 0, 8, 8, N_K, chunk, t_rs, stream)
+
+    for chunk in (36, 0):
+        assert pair(chunk, tkp.T_RS) != 0
+    assert pair(40, tkp.T_RS - 16) != 0
+    assert lib.synth_kp_v5_planes_launch(*operands, table, planes.data_ptr(), 8, 8, N_K,
+                                         tkp.T_RS - 16, stream) != 0
+    torch.cuda.synchronize()
+    assert not out.any()  # nothing ran
+    assert pair(40, tkp.T_RS) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, synth_kp_cuda.synth_kp_packed(inputs, N_K))
 
 
 def test_sizes_agree_with_the_source(gpu):

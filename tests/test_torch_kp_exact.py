@@ -323,7 +323,6 @@ def test_launch_geometry_of_the_pair(B, C, n_k):
     assert (seen == 1).all()
     chunk = synth_kp_cuda.k_chunk(B, C, n_k)
     assert main_grid == (tiles, B, -(-n_k // chunk))
-    assert synth_kp_cuda.launch_geometry(B, C, n_k, chunk=8)[1][0] == (tiles, B, n_k // 8)
 
 
 def _encode_planes(planes: dict, B: int, C: int, n_k: int) -> torch.Tensor:
