@@ -18,6 +18,15 @@
 // rows of the tile.  The table read and the index read are independent,
 // so a block waits for one trip to memory, not for two in a row.
 //
+// Of the two designs this one was kept.  The other, one indexed load from
+// global memory a thread, took 0.01961 ms for the seven probes where this
+// one takes 0.01832 (NVIDIA H100 80GB HBM3, 700.00 W, both in turns in one
+// process, ops/kp_ab.py; empty launches of the same grids 0.0119): equal
+// on the five small shapes, which sit at the launch floor either way,
+// 4% behind where the indices reach few columns of a long row or run
+// along axis 0, and 19% ahead on (16, 8192) with indices over the whole
+// row, the one probe whose time is not the launch's.
+//
 // What bounds it on an H100: it does no arithmetic; it moves 8 bytes an
 // element (idx read, out written) plus each table element the indices
 // reach, read once: at most 1.5 MB at the largest probe shape (16, 8192),

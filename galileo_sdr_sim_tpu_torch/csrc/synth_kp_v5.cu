@@ -41,8 +41,7 @@
 //   words of the 8 rows (two uint4) and the bits word; and once per
 //   (b, c, K) the K factor cis(2*pi*frac(fc_k*K)) (a float2).  At B = 8,
 //   C = 8 that is 4.8 MB, which stays in L2 for the main kernel.  One
-//   thread a column p, 128 columns a block; the nine (b, c) operands are
-//   loaded once a block into shared memory; a column's 32 taps (bytes of
+//   thread a column p, 128 columns a block; a column's 32 taps (bytes of
 //   32 rows of the window table, 11904 bytes apart) are loaded from one
 //   address with immediate offsets, the table's width being a
 //   compile-time constant; the K factors have blocks of their own behind
@@ -50,8 +49,9 @@
 //   sin/cos pairs in a row.  Its time is what its launch, its two trips
 //   to memory in a row (operands, then taps) and its stores take, not
 //   its bytes or its instructions: see PERF.md for what was measured
-//   (a thread per (row, column), and a window staged in shared memory
-//   with cp.async, were both slower).
+//   (a thread per (row, column), a window staged in shared memory with
+//   cp.async, and the (b, c) operands passed through shared memory were
+//   each slower).
 // * synth_kp_v5_kernel, one block per (p tile of 128 columns, epoch b,
 //   chunk of k_chunk K rows), one thread per column p, copies its tile of
 //   planes and its K factors into shared memory with coalesced loads and
@@ -242,15 +242,14 @@ __host__ __device__ inline dim3 planes_grid(int B, int C, int n_k) {
   return dim3(P_TILES + (n_k + P_TILE - 1) / P_TILE, B, C);
 }
 
-// the (b, c) operands a column block keeps in shared memory, as words
-enum { S_CP0, S_TWO_A, S_MU, S_G0, S_O, S_R, S_CARR0, S_FC, S_COUNT };
-
 // The prologue (_kernel_v5 lines 124-170): a column block per (p tile,
 // epoch b, channel c), one thread a column p; after the column tiles, the
-// blocks of the K factors.  The nine (b, c) operands are loaded once a
-// block; the 32 tap loads of a column are sent off together, from one
-// address with immediate offsets, ahead of the carrier factor's sin/cos;
-// no thread computes a K factor ahead of its column.  Every value is the
+// blocks of the K factors.  Each thread loads the (b, c) operands it
+// needs itself (a warp's loads of one word are one request; passing them
+// through shared memory cost a barrier and 0.0004 ms, PERF.md); the 32
+// tap loads of a column are sent off together, from one address with
+// immediate offsets, ahead of the carrier factor's sin/cos; no thread
+// computes a K factor ahead of its column.  Every value is the
 // expression of _kernel_v5, in its order.
 __global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
     const float* __restrict__ cp0, const float* __restrict__ two_a,
@@ -279,21 +278,6 @@ __global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
     return;
   }
 
-  __shared__ uint32_t s_op[S_COUNT];
-  if (tid < S_COUNT) {
-    // one load a thread: the operand is chosen by selects, not branches
-    const void* src = tid == S_CP0     ? static_cast<const void*>(cp0)
-                      : tid == S_TWO_A ? static_cast<const void*>(two_a)
-                      : tid == S_MU    ? static_cast<const void*>(mu)
-                      : tid == S_G0    ? static_cast<const void*>(g0)
-                      : tid == S_O     ? static_cast<const void*>(o)
-                      : tid == S_R     ? static_cast<const void*>(r)
-                      : tid == S_CARR0 ? static_cast<const void*>(carr0)
-                                       : static_cast<const void*>(fc);
-    s_op[tid] = static_cast<const uint32_t*>(src)[bc];
-  }
-  __syncthreads();
-
   const int p = blockIdx.x * P_TILE + tid;
   const size_t at = (size_t)bc * P_PAD + p;
   if (p >= P_GRID) {
@@ -307,16 +291,16 @@ __global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
   const float inv_nper = 1.0f / NPER;
   const float s_ratio = (float)(1023.0 / 1300.0);
   const float pp = (float)p;
-  const float mu_c = __uint_as_float(s_op[S_MU]);
-  const float phi = 2.0f * __uint_as_float(s_op[S_CP0]) + __uint_as_float(s_op[S_TWO_A]) * pp;
+  const float mu_c = mu[bc];
+  const float phi = 2.0f * cp0[bc] + two_a[bc] * pp;
   const float gb = floorf(phi) + (mu_c < 0.0f ? -1.0f : 0.0f);
   const float psi = phi - gb;
   const float gbm = gb - NPER * floorf(gb * inv_nper);
   const float w8 = gb >= NPER ? 1.0f : 0.0f;
   const float s_p = floorf(pp * s_ratio);
   const float m_p = (float)COLS * pp - (float)P_GRID * s_p;
-  const float kap_p = m_p + __uint_as_float(s_op[S_R]) >= (float)P_GRID ? 1.0f : 0.0f;
-  const float e2 = (gb - __uint_as_float(s_op[S_G0])) - s_p - kap_p;
+  const float kap_p = m_p + r[bc] >= (float)P_GRID ? 1.0f : 0.0f;
+  const float e2 = (gb - g0[bc]) - s_p - kap_p;
 
   // 5-tap select: rows j*32 .. j*32+31 of column o + p, j = e2 + 2; the
   // loads are sent off before the carrier factor's sin/cos, which run while
@@ -325,14 +309,14 @@ __global__ void __launch_bounds__(P_TILE) kp_planes_kernel(
   const int j = (int)e2 + 2;
   if (j >= 0 && j < J_RS) {
     const int8_t* src =
-        vpack_rs + ((size_t)c * W_RS + (size_t)j * W_PACK) * T_RS + (int)s_op[S_O] + p;
+        vpack_rs + ((size_t)c * W_RS + (size_t)j * W_PACK) * T_RS + o[bc] + p;
 #pragma unroll
     for (int k = 0; k < W_PACK; ++k) v[k] = src[k * T_RS];
   } else {
 #pragma unroll
     for (int k = 0; k < W_PACK; ++k) v[k] = 0;
   }
-  float ph_p = __uint_as_float(s_op[S_CARR0]) + __uint_as_float(s_op[S_FC]) * pp;
+  float ph_p = carr0[bc] + fc[bc] * pp;
   ph_p = ph_p - floorf(ph_p);
   const float ang_p = two_pi * ph_p;
   q.plf[at] = make_float4(psi, w8, cosf(ang_p), sinf(ang_p));
