@@ -19,7 +19,9 @@ a GPU every test skips: a CUDA kernel has no CPU mode.  The gather
 kernel must equal `torch.take_along_dim`, and its plain version where an
 index lies outside the table.  Every kp instantiation must reproduce the
 recorded digests of its output (tests/data/torch_kp_digests.json): the
-same bits as the kernel they were recorded from.
+same bits as the kernel they were recorded from.  The pair of launches
+of a call (the main kernel a programmatic dependent of the prologue)
+gives the same bytes on another stream and from a second thread.
 """
 
 import json

@@ -2,8 +2,11 @@
 version against numpy's `take_along_axis` (the tool's own oracle,
 tools/probe_pallas_gather.py:33-36) and against the tool's Pallas kernel
 body run in interpret mode, on the tool's seven probes; the wrapper's
-refusals; 0 for an index outside the table; `main()`.  The CUDA kernel
-itself is held to `torch.take_along_dim` in tests/test_torch_cuda.py."""
+refusals; 0 for an index outside the table; `main()`; and the kernel's
+tiling (launch geometry, the slice of the table a block stages, what its
+wrapper refuses), emulated block by block in numpy against
+`np.take_along_axis`.  The CUDA kernel itself is held to
+`torch.take_along_dim` in tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
