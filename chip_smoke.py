@@ -95,7 +95,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
    blocks each meet the engine bar against the CPU's file (both routes
    are float-carrier engines); the PRNs allocated after the jump acquire
    at their Doppler in the last block; and the direct engine's device
-   time for one fallback block (CUDA events).
+   time for one fallback block (CUDA events);
+10. the real-time transmit path (`transmit_phase`): first the host's
+   wake-up jitter (a thread sleeping on the chunk grid, 10 s, idle);
+   then the CLI without -U (ThreadedRingSink(UsrpSink), the native ring,
+   the consumer thread) into the stand-in `uhd` (harness.stand_in_uhd),
+   whose streamer plays a 2.6 Msps DAC clock behind the ring: 60 s of
+   signal at B = 8 and 20 s at --block-epochs 1, each with 0 underruns
+   after the preload (no chunk the ring could not supply by its due
+   time; the sends that came late only because the consumer thread woke
+   late are counted and printed), a lead never above the ring, every
+   epoch handed to the radio, the kp pair launched once a block, and the
+   radio set as the command line says; the radio's SHA-256 of a 3 s run
+   equal to that of the -U 1 file of the same arguments; what a stage's
+   profiler range costs the host with no profiler running; and the 3 s
+   file run with --trace-dir in a process of its own, whose
+   torch.profiler trace lists as many launches of the prologue and the
+   main kernel as that process's launch counts, and the stream's stage
+   ranges, its file byte-identical to the run without a trace.
 The JSON summary of the kernels (with each one's bound: the larger of
 its float32 operations over the card's FP32 peak and its bytes over the
 HBM rate, see `kp_bound`, `planes_bound` and `gather_bytes`; and its
@@ -107,6 +124,7 @@ two lines before the last; the last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import socket
@@ -240,7 +258,147 @@ def gather_bytes(idx: torch.Tensor, axis: int) -> int:
     return (int(torch.unique(flat).numel()) + 2 * idx.numel()) * 4
 
 
+def transmit_phase(tmp: Path, gpu: str) -> dict:
+    """Phase 10 on the card, in the directory `tmp`; the stand-in `uhd`
+    goes into sys.modules first -> {kernel: launches} of its main-path
+    runs."""
+    from galileo_sdr_sim_tpu_torch import cli
+    from galileo_sdr_sim_tpu_torch.constants import (
+        FIFO_LENGTH, NUM_IQ_SAMPLES, SAMP_RATE, SAMPLES_PER_BUFFER,
+    )
+    from galileo_sdr_sim_tpu_torch.harness import (
+        FIXTURE_LLH, FIXTURE_START, fixture_engine, stand_in_uhd, transmit,
+    )
+    from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
+    from galileo_sdr_sim_tpu_torch.ops.measure import host_ms
+    from galileo_sdr_sim_tpu_torch.ops.synth_kp_cuda import PLANES
+    from torch.profiler import record_function
+
+    uhd = stand_in_uhd()
+    sys.modules["uhd"] = uhd
+    static = tmp / "static.csv"  # one row: keeps off the fixed UDP ports
+    static.write_text(",".join(str(v) for v in FIXTURE_LLH) + "\n")
+    device_args = "type=b200,serial=SMOKE10"
+    base = ["-e", str(NAV), "-b", "1", "-t", FIXTURE_START, "-u", str(static), "-G", "30",
+            "-a", device_args]
+    launches = dict.fromkeys(("synth_kp_v5", PLANES), 0)
+
+    def kp_only(counts: dict, blocks: int, label: str) -> None:
+        ran = {k: v for k, v in counts.items() if v}
+        check(ran == {"synth_kp_v5": blocks, PLANES: blocks},
+              f"{label}: launches {ran}, want {blocks} of synth_kp_v5 and its prologue")
+        for name in launches:
+            launches[name] += counts[name]
+
+    # the host's own wake-up jitter: a thread sleeping to a chunk's due
+    # time on the DAC's grid with nothing else running, the late sends
+    # that the consumer thread would show with a perfect producer
+    period = SAMPLES_PER_BUFFER / SAMP_RATE
+    wakes, due = [], time.perf_counter()
+    while len(wakes) < int(10.0 / period):
+        due += period
+        time.sleep(max(0.0, due - time.perf_counter()))
+        wakes.append(time.perf_counter() - due)
+    wakes_ms = np.array(wakes) * 1e3
+    print(f"wake-up after a sleep to the chunk grid, idle, {wakes_ms.size} chunks: median "
+          f"{np.median(wakes_ms):.3f} ms, p99 {np.percentile(wakes_ms, 99):.3f} ms, most "
+          f"{wakes_ms.max():.3f} ms, {int((wakes_ms > period * 1e3).sum())} above a chunk's "
+          f"{period * 1e3:.3f} ms ({gpu})")
+
+    # 60 s at B = 8 (the JAX contract's length, tests/test_realtime_pacing.py)
+    # and 20 s of live mode's grid, each behind a DAC clock
+    for seconds, options, b in ((60, [], 8), (20, ["--block-epochs", "1"], 1)):
+        label = f"transmit {seconds} s B = {b}"
+        synth_kp_cuda.reset_counts()
+        stats, radio, wall = transmit([*base, "-d", str(seconds), *options], uhd, pace=True)
+        counts = dict(synth_kp_cuda.launch_counts)
+        tx = radio.stream
+        epochs = len(fixture_engine(NAV, seconds))
+        # the least lead while the producer still writes (the ring only
+        # drains after its last FIFO_LENGTH samples)
+        least = tx.least_lead(max(1, tx.samples - FIFO_LENGTH - SAMPLES_PER_BUFFER))
+        print(f"{label}: {tx.samples / SAMP_RATE:.3f} signal-s in {wall:.3f} s wall "
+              f"(preload {tx.preload_s:.3f} s), {len(tx.bursts)} sends, underruns "
+              f"{tx.underruns} at {tx.underrun_at[:10]}, late sends {tx.late} (the latest "
+              f"{tx.most_late_s * 1e3:.3f} ms), least lead {least} samples "
+              f"({least / SAMP_RATE * 1e3:.3f} ms), most lead {tx.max_lead} of {FIFO_LENGTH}, "
+              f"launches {counts} ({gpu})")
+        print(stats.stage_report())
+        print(f"{label}: radio args {radio.device_args!r} rate {radio.rate} freq {radio.freq} "
+              f"gain {radio.gain}")
+        check(tx.underruns == 0, f"{label}: {tx.underruns} underruns at {tx.underrun_at[:10]}")
+        check(tx.max_lead <= FIFO_LENGTH, f"{label}: lead {tx.max_lead} above the ring")
+        check(tx.samples == stats.samples == epochs * NUM_IQ_SAMPLES,
+              f"{label}: {tx.samples} samples sent for {epochs} epochs")
+        kp_only(counts, -(-epochs // b), label)
+        check((radio.device_args, radio.rate, radio.freq, radio.gain)
+              == (device_args, 2.6e6, 1575.42e6, 30.0), f"{label}: radio set {vars(radio)}")
+        check(tx.bursts[0] and not any(tx.bursts[1:]) and tx.md.end_of_burst,
+              f"{label}: burst flags")
+
+    # the radio's bytes are the file's bytes
+    three = [*base, "-d", "3"]
+    epochs3, blocks3 = len(fixture_engine(NAV, 3.0)), -(-len(fixture_engine(NAV, 3.0)) // B)
+    synth_kp_cuda.reset_counts()
+    _, radio, _ = transmit(three, uhd, pace=False)
+    kp_only(dict(synth_kp_cuda.launch_counts), blocks3, "transmit 3 s")
+    out = tmp / "transmit3.ishort"
+    synth_kp_cuda.reset_counts()
+    check(cli.main([*three, "-U", "1", "-o", str(out)]) == 0, "the 3 s file run failed")
+    kp_only(dict(synth_kp_cuda.launch_counts), blocks3, "file 3 s")
+    file_bytes = out.read_bytes()
+    same = radio.stream.digest.hexdigest() == hashlib.sha256(file_bytes).hexdigest()
+    print(f"transmit 3 s: SHA-256 of the radio's {radio.stream.samples} samples equals that of "
+          f"the -U 1 file's {len(file_bytes) // 4}: {same}")
+    check(same and len(file_bytes) == epochs3 * NSAMP * 4, "the radio's bytes differ from the file's")
+
+    # --trace-dir on the card: the trace lists the launches the counts saw;
+    # what a stage's range costs the host when no profiler runs
+    def stage_range() -> None:
+        with record_function("scenario"):
+            pass
+
+    print(f"a stage range with no profiler running: {host_ms(stage_range, per=100) * 1e3:.3f} us "
+          f"on the host ({gpu})")
+    # the CLI in a process of its own, as a user runs it: after phases 1-9
+    # in this process the trace held no device events (PERF.md §7)
+    trace_dir, traced = tmp / "trace", tmp / "traced3.ishort"
+    code = ("import json, sys\n"
+            "from galileo_sdr_sim_tpu_torch._block_reference import install\n"
+            "install()\n"
+            "from galileo_sdr_sim_tpu_torch import cli\n"
+            "from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda\n"
+            "rc = cli.main(sys.argv[1:])\n"
+            "print('COUNTS ' + json.dumps(synth_kp_cuda.launch_counts))\n"
+            "sys.exit(rc)\n")
+    proc = subprocess.run([sys.executable, "-c", code, *three, "-U", "1", "-o", str(traced),
+                           "--trace-dir", str(trace_dir)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"the --trace-dir run failed:\n{proc.stderr[-3000:]}")
+    counts = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith("COUNTS "))[7:])
+    kp_only(counts, blocks3, "--trace-dir 3 s")
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"--trace-dir wrote {[f.name for f in trace_dir.iterdir()]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    seen = {"synth_kp_v5": sum("synth_kp_v5_kernel" in k for k in kernels),
+            PLANES: sum("kp_planes_kernel" in k for k in kernels)}
+    stages = {"scenario", "host_prep+dispatch", "device_wait+fetch", "sink_write"}
+    same = traced.read_bytes() == file_bytes
+    print(f"--trace-dir 3 s: {files[0].name} ({files[0].stat().st_size} bytes), {len(kernels)} "
+          f"kernel events, of them {seen} against the launch counts {counts}; stage ranges "
+          f"{sorted(ranges & (stages | {'fallback_direct'}))}; file byte-identical to the run "
+          f"without a trace: {same}")
+    check(seen == {k: counts[k] for k in seen}, f"trace kernels {seen}, launch counts {counts}")
+    check(stages <= ranges, f"trace stage ranges {sorted(ranges)}")
+    check(same, "--trace-dir changed the output")
+    del sys.modules["uhd"]
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     # --- 1. the card -----------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device: this smoke run needs one GPU")
     check((PKG / "csrc").is_dir() and NAV.is_file(),
@@ -999,6 +1157,9 @@ def main() -> int:
               f"{batch.prn.size} channels: {direct_ms:.4f} ms on the card, "
               f"{direct_ms / n_real:.4f} ms an epoch ({gpu})")
 
+        # --- 10. the real-time transmit path ------------------------------
+        tally(transmit_phase(Path(tmp), gpu))
+
     kp_source = "galileo_sdr_sim_tpu_torch/csrc/synth_kp_v5.cu"
 
     def entry(name, source, replaces, n_launch, err, ms, plain_ms, bound_, floor, library_ms=None):
@@ -1025,6 +1186,7 @@ def main() -> int:
                          gather["library_ms"]))
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched by its main path")
+    print(f"smoke run: {time.perf_counter() - t_start:.1f} s wall, builds included ({gpu})")
     print(json.dumps({"kernels": entries}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

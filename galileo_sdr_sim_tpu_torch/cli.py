@@ -5,7 +5,7 @@
 
 Its parser and helpers are a copy of the JAX package's
 (galileo_sdr_sim_tpu/cli.py:47-208: the same flags and defaults), and it
-follows that package's `cli.main` for the file sink: `--engine auto|kp_pallas|kp` runs the
+follows that package's `cli.main`: `--engine auto|kp_pallas|kp` runs the
 factorized engine (the CUDA kernel on a GPU, its plain PyTorch version on
 the CPU) and `--engine direct` the direct engine; `--model cboc`,
 `--apply-gain` and `--bandlimit` (which implies `--model cboc`) run as
@@ -16,8 +16,12 @@ file cooperatively (parallel/distributed.py): NCCL and the kernel under
 `--device cpu`.  `--pipeline-depth N` and `--checkpoint FILE` reach the
 streaming executor as in the JAX CLI; as there, the file sink opens its
 output with "wb", so a run resumed from a checkpoint rewrites the file
-from the resumed epoch.  The USRP sink and --trace-dir are not ported
-yet and stop with an error naming their ROADMAP item.
+from the resumed epoch.  Without `-U` the samples go to the radio as in
+the JAX CLI (galileo_sdr_sim_tpu/cli.py:349-357): the device drain
+writes the native C++ ring (0.2 s deep, FIFO_LENGTH), whose consumer
+thread hands SAMPLES_PER_BUFFER chunks to `UsrpSink` (the `uhd`
+package).  `--trace-dir DIR` runs the stream under torch.profiler and
+writes a TensorBoard-loadable trace to DIR (profiling.trace).
 """
 
 from __future__ import annotations
@@ -143,8 +147,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the over-the-air channel of the reference's "
                         "hardware-receiver validation)")
     p.add_argument("--trace-dir", metavar="DIR",
-                   help="device trace of the run (not ported yet: the "
-                        "run stops with an error)")
+                   help="write a torch.profiler trace of the run (host "
+                        "and, on a GPU, device) to DIR (TensorBoard-"
+                        "loadable; profiling.trace)")
     p.add_argument("--native-fifo", action="store_true",
                    help="route the file sink through the native C++ ring "
                         "buffer + consumer thread (always on for USRP "
@@ -214,7 +219,8 @@ def build_torch_parser():
 
 @dataclass
 class Run:
-    """A configured file-sink run: call synth.run(), then close()."""
+    """A configured run: call synth.run(), then close(), which drains
+    and closes the sink (the radio's ring first) and stops the servers."""
 
     synth: object  # io.stream.StreamingSynthesizer
     sink: object
@@ -229,12 +235,6 @@ class Run:
 def _refuse_unported(args) -> str | None:
     if os.environ.get(ENV_COORD) and args.disable_usrp is None:
         return "ERROR: distributed mode supports the file sink only (-U 1)."
-    if args.disable_usrp is None:
-        return ("ERROR: the USRP sink is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 1); use the file sink (-U 1).")
-    if args.trace_dir:
-        return ("ERROR: --trace-dir is not ported to the PyTorch engine yet "
-                "(ROADMAP queue 1 item 2).")
     return None
 
 
@@ -303,11 +303,17 @@ def build_run(args) -> Run:
     device = resolve_device(args.device)
     engine, servers = build_engine(args)
     try:
-        from .io.sinks import FileSink
-
+        from .io.sinks import FileSink, UsrpSink
         from .io.stream import StreamingSynthesizer
 
-        if args.native_fifo:
+        if args.disable_usrp is None:
+            # real-time path: device drain -> native C++ ring (0.2 s deep,
+            # FIFO_LENGTH) -> consumer thread -> UHD, the reference's
+            # galileo_task/tx_task split
+            from .io.native_fifo import ThreadedRingSink
+
+            sink = ThreadedRingSink(UsrpSink(gain=args.gain, device_args=args.device_args))
+        elif args.native_fifo:
             from .io.native_fifo import NativeFifoSink
 
             sink = NativeFifoSink(args.outfile)
@@ -384,7 +390,13 @@ def main(argv=None) -> int:
 
     previous = signal.signal(signal.SIGINT, _sigint)
     try:
-        stats = run.synth.run()
+        if args.trace_dir:
+            from .profiling import trace
+
+            with trace(args.trace_dir, run.synth.device):
+                stats = run.synth.run()
+        else:
+            stats = run.synth.run()
     finally:
         signal.signal(signal.SIGINT, previous)
         run.close()

@@ -29,6 +29,14 @@ reaches the samples; `AbsSumSink` is a device-resident consumer for
 `jump_scene_blocks`, `compare_jump_files`, `acquire_block`) sends one
 block of a file-sink run through the direct fallback and holds two files
 of the scene to each other route by route.
+
+`stand_in_uhd` is a stand-in for the `uhd` package, which the USRP sink
+imports, for the tests and the smoke run (their callers put it in
+`sys.modules["uhd"]`; no entry point of the package does): it records
+the radio's settings and hashes every sample sent, and its TX streamer,
+handed the sink's ring, plays a DAC clock at the radio's rate and counts
+underruns.  `transmit` drives the CLI's USRP path through it as
+`cli.main` does.
 """
 
 from __future__ import annotations
@@ -37,13 +45,17 @@ import hashlib
 import socket
 import struct
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .cli import _parse_time
-from .constants import CA_SEQ_LEN_E1, EPOCH_DT, LUT_AMPLITUDE, NUM_IQ_SAMPLES, R2D, SAMP_RATE
+from .constants import (
+    CA_SEQ_LEN_E1, EPOCH_DT, FIFO_LENGTH, LUT_AMPLITUDE, NUM_IQ_SAMPLES, R2D, SAMP_RATE,
+    SAMPLES_PER_BUFFER,
+)
 from .geodesy import llh2xyz
 from .io.sinks import Sink
 from .models.cboc import E1_CBOC
@@ -97,6 +109,7 @@ LIVE_MOVE = (43.0, -70.0, 50.0)  # ~110 km from the fixture site
 JUMP_LLH = (30.0, -71.0589, 2.0)
 JUMP_ROWS = (150, 170)
 JUMP_SECONDS = 32.0
+PRELOAD_TIMEOUT_S = 60.0  # the stand-in radio's wait for the ring's preload
 
 
 def fixture_engine(nav_path, duration_s: float, model=E1_OS) -> ScenarioEngine:
@@ -512,3 +525,168 @@ def live_pickup(nav_path, device, ports: tuple) -> dict:
                  and out["metric4"] > 8.0 and out["err4_chips"] < 1.0
                  and out["from_stay4_chips"] > 20.0)
     return out
+
+
+class StandInTxStreamer:
+    """The stand-in radio's TX streamer (`MultiUSRP.get_tx_stream`).
+
+    Every sample sent goes into a running SHA-256 (`digest`) and a count
+    (`samples`); no sample is kept.  `bursts` holds each send's
+    `start_of_burst`, and `md` the metadata object of the last send, which
+    the sink marks `end_of_burst` when it closes.
+
+    Handed the sink's ring (`pace`), it plays a DAC clock at the radio's
+    rate, as tests/test_realtime_pacing.py's consumer does from the place
+    where the radio sits: its first send waits, up to PRELOAD_TIMEOUT_S,
+    until the ring holds `preload` samples (the reference FIFO less one
+    chunk), then starts the clock; after that each send returns when its
+    chunk is due to play, so the radio holds at most one chunk and the
+    ring's 0.2 s is the slack.  A chunk that reaches send after its due
+    time is `late`: the DAC ran dry before it came (a real one plays
+    zeros), so the clock restarts with that chunk and the lost time is
+    not made up by playing faster.  A late chunk is an underrun, the
+    JAX contract's (the ring could not supply the chunk), unless the ring
+    already held it when the chunk before arrived: then its samples were
+    there before its due time, and only the thread that calls send was
+    late (a sleeping thread's wake-up, the interpreter lock).  The lead,
+    `ring.available`, is recorded as each chunk arrives: no sample leaves
+    the ring between a chunk's arrival and its due time, so that is the
+    least the lead is there."""
+
+    def __init__(self, rate: float):
+        self.rate = rate
+        self.digest = hashlib.sha256()
+        self.samples = 0
+        self.bursts: list[bool] = []
+        self.md = None
+        self.late = 0
+        self.most_late_s = 0.0
+        self.underruns = 0
+        self.underrun_at: list[float] = []  # signal-seconds of each underrun
+        self.leads: list[tuple[int, int]] = []  # (samples played before, lead) a chunk
+        self.preload_s = None  # wall seconds the first send waited for the preload
+        self._ring = None
+        self._due = None
+
+    def pace(self, ring, preload: int = FIFO_LENGTH - SAMPLES_PER_BUFFER) -> None:
+        """Play a DAC clock from the next send on, reading the lead from
+        `ring` (an io.native_fifo.IqRing)."""
+        self._ring, self._preload = ring, preload
+
+    def send(self, buf: np.ndarray, md) -> int:
+        now = time.perf_counter()
+        n = buf.size // 2
+        if self._ring is not None:
+            if self._due is None:
+                deadline = now + PRELOAD_TIMEOUT_S
+                while self._ring.available < self._preload and time.perf_counter() < deadline:
+                    time.sleep(0.005)
+                self._due = time.perf_counter()
+                self.preload_s = self._due - now
+            elif now > self._due:
+                self.late += 1
+                self.most_late_s = max(self.most_late_s, now - self._due)
+                if self.leads[-1][1] < n:
+                    self.underruns += 1
+                    self.underrun_at.append(self.samples / self.rate)
+                self._due = now
+            self.leads.append((self.samples, self._ring.available))
+        self.md = md
+        self.bursts.append(bool(md.start_of_burst))
+        self.digest.update(np.ascontiguousarray(buf, dtype=np.int16))
+        if self._ring is not None:
+            lag = self._due - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            self._due += n / self.rate
+        self.samples += n
+        return n
+
+    @property
+    def max_lead(self) -> int:
+        return max((lead for _, lead in self.leads), default=0)
+
+    def least_lead(self, before: int | None = None) -> int | None:
+        """The least lead at the arrivals of the chunks that start before
+        sample `before` (all when None); None before any chunk."""
+        leads = [lead for at, lead in self.leads if before is None or at < before]
+        return min(leads, default=None)
+
+
+class StandInUsrp:
+    """The stand-in `uhd.usrp.MultiUSRP`: records the device args, the TX
+    rate, frequency and gain, and the TX streamer it made."""
+
+    def __init__(self, device_args: str = ""):
+        self.device_args = device_args
+        self.rate = self.freq = self.gain = None
+        self.stream_args = None
+        self.stream: StandInTxStreamer | None = None
+
+    def set_tx_rate(self, rate: float) -> None:
+        self.rate = float(rate)
+
+    def set_tx_freq(self, tune_request) -> None:
+        self.freq = float(tune_request.target_freq)
+
+    def set_tx_gain(self, gain: float) -> None:
+        self.gain = float(gain)
+
+    def get_tx_stream(self, stream_args) -> StandInTxStreamer:
+        self.stream_args = stream_args
+        self.stream = StandInTxStreamer(self.rate)
+        return self.stream
+
+
+class _StreamArgs:
+    def __init__(self, cpu_format: str = "", otw_format: str = ""):
+        self.cpu_format, self.otw_format = cpu_format, otw_format
+
+
+class _TXMetadata:
+    def __init__(self):
+        self.start_of_burst = self.end_of_burst = self.has_time_spec = False
+
+
+class _TuneRequest:
+    def __init__(self, target_freq: float = 0.0):
+        self.target_freq = target_freq
+
+
+def stand_in_uhd() -> types.ModuleType:
+    """A module that stands in for `uhd` where `UsrpSink` uses it
+    (io/sinks.py): `usrp.MultiUSRP`, `usrp.StreamArgs`,
+    `types.TXMetadata` and `libpyuhd.types.tune_request`.  Each
+    MultiUSRP made is appended to the module's `radios`.  The caller
+    installs it as `sys.modules["uhd"]`."""
+    uhd = types.ModuleType("uhd", "Stand-in for the UHD python package (harness.stand_in_uhd).")
+    uhd.radios = []
+
+    def multi_usrp(device_args: str = "") -> StandInUsrp:
+        uhd.radios.append(StandInUsrp(device_args))
+        return uhd.radios[-1]
+
+    uhd.usrp = types.SimpleNamespace(MultiUSRP=multi_usrp, StreamArgs=_StreamArgs)
+    uhd.types = types.SimpleNamespace(TXMetadata=_TXMetadata)
+    uhd.libpyuhd = types.SimpleNamespace(types=types.SimpleNamespace(tune_request=_TuneRequest))
+    return uhd
+
+
+def transmit(argv: list, uhd: types.ModuleType, *, pace: bool) -> tuple:
+    """The port CLI's USRP path as `cli.main` runs it (cli.build_run,
+    synth.run, Run.close) on the command line `argv` (no -U), with the
+    stand-in `uhd`, already in sys.modules, whose streamer is handed the
+    sink's ring when `pace` -> (StreamStats, the StandInUsrp, wall
+    seconds of run() and close())."""
+    from . import cli
+
+    run = cli.build_run(cli.build_torch_parser().parse_args(cli._glue_negative_values(argv)))
+    radio = uhd.radios[-1]
+    t0 = time.perf_counter()
+    try:
+        if pace:
+            radio.stream.pace(run.sink.ring)
+        stats = run.synth.run()
+    finally:
+        run.close()
+    return stats, radio, time.perf_counter() - t0

@@ -44,6 +44,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..checkpoint import load_state, save_state
 from ..constants import NUM_IQ_SAMPLES
@@ -202,6 +203,13 @@ class StreamingSynthesizer:
     def stop(self) -> None:
         self._stop = True
 
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """A stage of the stream: its Timer section, and a range of that
+        name in a torch.profiler trace (profiling.trace)."""
+        with self.stats.timer.section(name), record_function(name):
+            yield
+
     def _hand_over(self, block: torch.Tensor):
         """A block as it leaves the producer: on its way to the host
         (`_Fetch`), or the device tensor itself when the sink takes it."""
@@ -213,7 +221,7 @@ class StreamingSynthesizer:
             # scenario stepping (host float64 geometry and nav bits) has
             # its own stage: the JAX executor leaves it untimed.  It runs
             # under the engine lock, so a snapshot sees committed state
-            with self.stats.timer.section("scenario"):
+            with self._stage("scenario"):
                 with self._engine_lock:
                     batch = next(gen, None)
             if batch is None:
@@ -224,7 +232,7 @@ class StreamingSynthesizer:
             # the fallback synthesizes and synchronizes on the host, so it
             # gets its own stage, as in the JAX executor
             section = "fallback_direct" if fallback else "host_prep+dispatch"
-            with self.stats.timer.section(section):
+            with self._stage(section):
                 if use_kp and not fallback and self.bandlimit:
                     out, self._bl_state = synth_block_cboc_bandlimited(
                         batch,
@@ -354,19 +362,19 @@ class StreamingSynthesizer:
 
     def _drain(self, batch, fut, n_real: int) -> None:
         if self.drain_host:
-            with self.stats.timer.section("device_wait+fetch"):
+            with self._stage("device_wait+fetch"):
                 host = fut.result() if isinstance(fut, _Fetch) else fut
                 if host.ndim == 3:  # packed int32 I/Q -> free int16 view
                     host = packed_to_iq16(host)
                 host = host[:n_real, : 2 * self.nsamples]
-            with self.stats.timer.section("sink_write"):
+            with self._stage("sink_write"):
                 self.sink.write(host)
         else:
             # the device-resident sink decides its own synchronization
             # point.  kp blocks keep the packed int32 (B, n_k, 1300)
             # layout, the band-limited and direct ones (B, 2 nsamples)
             # int16; a block is sliced only when it is partial
-            with self.stats.timer.section("sink_write"):
+            with self._stage("sink_write"):
                 shape = tuple(fut.shape)
                 if len(shape) == 3:
                     self.sink.write(fut if shape[0] == n_real else fut[:n_real])

@@ -3,12 +3,15 @@
 The reference's only instrumentation is a final wall-clock print
 (reference: src/galileo-sdr.cpp:664-665).  Here:
 
+* `trace(dir, device)` — context manager around `torch.profiler`
+  producing a TensorBoard-loadable trace of the run: host activity, and
+  the kernels and copies on the card when `device` is a GPU; exposed as
+  the CLI's `--trace-dir` flag (cli.py).  The streaming executor names
+  its stages in it with `record_function` ranges of its Timer sections.
 * `Timer` — lightweight named wall-clock sections; the streaming
   executor (io/stream.py) keeps one per run, splitting each block into
   host prep/dispatch, device wait, and sink time (printed under -v and
   by `StreamStats.stage_report`).
-
-The device trace of the run (the CLI's `--trace-dir`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,26 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device):
+    """Profile the body with torch.profiler (CPU activity, plus CUDA
+    activity on a GPU `device`) and write its trace to `log_dir` when
+    the body ends, however it ends."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir)))
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
 
 
 @dataclass

@@ -161,6 +161,34 @@ def test_cli_with_the_reference_blocked_is_byte_identical(tmp_path):
     assert np.array_equal(got, ref)
 
 
+def test_usrp_cli_with_the_reference_blocked(tmp_path):
+    """The USRP path (no -U: the native ring, its consumer thread and
+    UsrpSink) in a process where JAX and the JAX package cannot be
+    imported, into the harness's stand-in `uhd`: the radio gets the bytes
+    of the -U 1 file of the same command line, and the --trace-dir run
+    writes its trace, with neither name loaded."""
+    um = tmp_path / "static.csv"
+    um.write_text(",".join(str(v) for v in LLH) + "\n")
+    argv = ["-e", str(NAV), "-b", "1", "-d", "0.3", "-t", START, "-u", str(um), "--device", "cpu"]
+    out, trace = tmp_path / "file.ishort", tmp_path / "trace"
+    code = _BLOCK + (
+        "import hashlib; import torch; torch.set_num_threads(2)\n"
+        "from galileo_sdr_sim_tpu_torch import cli, harness\n"
+        "uhd = sys.modules['uhd'] = harness.stand_in_uhd()\n"
+        f"assert cli.main({argv!r}) == 0\n"
+        f"assert cli.main({argv!r} + ['-U', '1', '-o', {str(out)!r}, '--trace-dir', {str(trace)!r}]) == 0\n"
+        "(radio,) = uhd.radios\n"
+        f"assert radio.stream.digest.hexdigest() == hashlib.sha256(open({str(out)!r}, 'rb').read()).hexdigest()\n"
+        "assert radio.stream.samples == 2 * 260000 and radio.stream.md.end_of_burst\n"
+        "assert not loaded(), loaded()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.splitlines()[-1] == "ok", proc.stderr[-3000:]
+    assert len(list(trace.glob("*.pt.trace.json"))) == 1
+
+
 def test_bandlimit_port_stands_alone():
     """The port's band-limit module copies the JAX module's numpy parts
     instead of importing them: that module imports JAX."""

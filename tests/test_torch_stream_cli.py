@@ -25,6 +25,7 @@ from galileo_sdr_sim_tpu_torch.harness import bandlimit_bar, cboc_bar, engine_ba
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
 from galileo_sdr_sim_tpu_torch.ops import bandlimit as tbl
 from galileo_sdr_sim_tpu_torch.ops.synth_kp import mu_in_envelope
+from galileo_sdr_sim_tpu_torch.parallel.distributed import ENV_COORD
 
 from _torch_parity import CPU, LLH, NAV, START, fixture_engine
 from conftest import CollectSink
@@ -306,27 +307,33 @@ def test_engine_flag_routes():
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    base = ["-e", str(NAV), "-t", START, "-d", "0.3", "-o", str(tmp_path / "x.ishort")]
+    """What the port's CLI still refuses, as the JAX CLI does: no nav
+    file, a test-vector file alone, and distributed mode without -U."""
+    base = ["-e", str(NAV), "-t", START, "-d", "0.3", "-o", str(tmp_path / "x.ishort"),
+            "--device", "cpu"]
     assert cli.main([]) == 1  # no nav file
-    assert cli.main(base) == 1  # USRP sink (no -U)
-    assert cli.main(base + ["-U", "1", "--trace-dir", str(tmp_path)]) == 1
+    assert cli.main(["-n", "tv.bin", "-U", "1"]) == 1  # the vestigial test vectors
+    monkeypatch.setenv(ENV_COORD, f"file://{tmp_path / 'never'}")
+    assert cli.main(base) == 1  # distributed mode, the USRP sink
+    assert not (tmp_path / "x.ishort").exists()
 
 
-@pytest.mark.parametrize("options, item", [
-    ([], 1),  # the USRP sink: no -U
-    (["-U", "1", "--trace-dir", "trace"], 2),
+@pytest.mark.parametrize("options, env", [
+    (["-n", "tv.bin", "-U", "1"], False),  # test vectors without a nav file
+    ([], True),  # distributed mode with the USRP sink
 ])
-def test_cli_refusal_is_one_error_line(tmp_path, capsys, options, item):
-    """An option that is not ported stops the CLI with one ERROR line that
-    names its item of ROADMAP.md's queue 1, exit code 1 and no traceback,
-    before anything is written."""
+def test_cli_refusal_is_one_error_line(tmp_path, capsys, monkeypatch, options, env):
+    """A refusal stops the CLI with one ERROR line, exit code 1 and no
+    traceback, before anything is written."""
     out = tmp_path / "x.ishort"
-    options = [str(tmp_path / o) if o == "trace" else o for o in options]
-    rc = cli.main(["-e", str(NAV), "-t", START, "-d", "0.3", "-o", str(out), *options])
+    if env:
+        monkeypatch.setenv(ENV_COORD, f"file://{tmp_path / 'never'}")
+        options = ["-e", str(NAV), "-t", START, "-d", "0.3", "--device", "cpu"]
+    rc = cli.main([*options, "-o", str(out)])
     printed, err = capsys.readouterr()
     assert rc == 1
     assert printed.splitlines() == [printed.strip()], printed
-    assert printed.startswith("ERROR: ") and f"(ROADMAP queue 1 item {item})" in printed
+    assert printed.startswith("ERROR: ")
     assert "Traceback" not in err
     assert not out.exists()
 
