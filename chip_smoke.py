@@ -272,7 +272,7 @@ def transmit_phase(tmp: Path, gpu: str) -> dict:
     from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
     from galileo_sdr_sim_tpu_torch.ops.measure import host_ms
     from galileo_sdr_sim_tpu_torch.ops.synth_kp_cuda import PLANES
-    from torch.profiler import record_function
+    from galileo_sdr_sim_tpu_torch.profiling import Timer, installed, span
 
     uhd = stand_in_uhd()
     sys.modules["uhd"] = uhd
@@ -353,13 +353,15 @@ def transmit_phase(tmp: Path, gpu: str) -> dict:
     check(same and len(file_bytes) == epochs3 * NSAMP * 4, "the radio's bytes differ from the file's")
 
     # --trace-dir on the card: the trace lists the launches the counts saw;
-    # what a stage's range costs the host when no profiler runs
-    def stage_range() -> None:
-        with record_function("scenario"):
+    # what a stage's span costs the host when no profiler runs (it opens
+    # no range then)
+    def stage_span() -> None:
+        with span("scenario"):
             pass
 
-    print(f"a stage range with no profiler running: {host_ms(stage_range, per=100) * 1e3:.3f} us "
-          f"on the host ({gpu})")
+    with installed(Timer()):
+        print(f"a stage span with no profiler running: {host_ms(stage_span, per=100) * 1e3:.3f} "
+              f"us on the host ({gpu})")
     # the CLI in a process of its own, as a user runs it: after phases 1-9
     # in this process the trace held no device events (PERF.md §7)
     trace_dir, traced = tmp / "trace", tmp / "traced3.ishort"

@@ -6,6 +6,10 @@ src/galileo-sdr.cpp:542,570-595).  Here sinks are simple writer objects;
 rate decoupling/backpressure lives in the streaming executor
 (io/stream.py) and, for real-time SDR output, in the native ring buffer
 (native/, io/native_fifo.py).
+
+The port's copy adds one span to the original's text: `FileSink.write` is
+the span `file` (profiling.span; `sink_write/file` in the streaming
+executor, nothing where no Timer is installed).
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+from ..profiling import span
 
 
 class Sink:
@@ -39,7 +45,8 @@ class FileSink(Sink):
         self._fh = open(path, "wb") if self._own else sys.stdout.buffer
 
     def write(self, iq: np.ndarray) -> None:
-        self._fh.write(np.ascontiguousarray(iq, dtype=np.int16).tobytes())
+        with span("file"):
+            self._fh.write(np.ascontiguousarray(iq, dtype=np.int16).tobytes())
 
     def close(self) -> None:
         if self._own:

@@ -29,6 +29,18 @@ Routing per block, as the JAX executor does:
   was (docs/bandlimit.md, known seams);
 * the direct engine for every block under `mode='lut512'`, and for
   signal models other than the sine-BOC and CBOC ones.
+
+Timing: `run` installs the run's Timer on each thread it runs
+(profiling.installed).  The stages are its top-level spans: `scenario`,
+`host_prep+dispatch` (`fallback_direct` for a direct-engine block),
+`device_wait+fetch` and `sink_write`.  The layers below open theirs
+inside them: `scenario/geometry`, `/nav_page`, `/realloc` and `/pack`
+(scenario.py); `host_prep+dispatch/seed`, `/codes` (a window-table
+rebuild) and `/h2d` (ops/synth_kp.py), `/launch` and `/fetch` (here);
+`sink_write/file` (io/sinks.FileSink).  A stage's section includes its
+spans'.  Under torch.profiler the innermost open span of a thread holds
+a range of its path, so a stage's ranges are its self time; with no
+profiler running no range opens.
 """
 
 from __future__ import annotations
@@ -44,7 +56,6 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..checkpoint import load_state, save_state
 from ..constants import NUM_IQ_SAMPLES
@@ -52,7 +63,7 @@ from ..ops.bandlimit import initial_state, synth_block_cboc_bandlimited
 from ..ops.synth import TILE, prepare_device_inputs, synth_block
 from ..ops.synth_kp import P_GRID, ROWS, mu_in_envelope, packed_to_iq16, prepare_kp_inputs
 from ..ops.synth_kp_cuda import synth_kp_packed
-from ..profiling import Timer
+from ..profiling import Timer, installed, span
 from ..scenario import EpochStateTable, ScenarioEngine
 from .sinks import Sink
 
@@ -99,13 +110,14 @@ class _Fetch:
     end; on the CPU, the block itself."""
 
     def __init__(self, block: torch.Tensor):
-        if block.device.type == "cuda":
-            self._host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
-            self._host.copy_(block, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(block.device))
-        else:
-            self._host, self._event = block, None
+        with span("fetch"):
+            if block.device.type == "cuda":
+                self._host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+                self._host.copy_(block, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(block.device))
+            else:
+                self._host, self._event = block, None
 
     def result(self) -> np.ndarray:
         if self._event is not None:
@@ -203,13 +215,6 @@ class StreamingSynthesizer:
     def stop(self) -> None:
         self._stop = True
 
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        """A stage of the stream: its Timer section, and a range of that
-        name in a torch.profiler trace (profiling.trace)."""
-        with self.stats.timer.section(name), record_function(name):
-            yield
-
     def _hand_over(self, block: torch.Tensor):
         """A block as it leaves the producer: on its way to the host
         (`_Fetch`), or the device tensor itself when the sink takes it."""
@@ -221,7 +226,7 @@ class StreamingSynthesizer:
             # scenario stepping (host float64 geometry and nav bits) has
             # its own stage: the JAX executor leaves it untimed.  It runs
             # under the engine lock, so a snapshot sees committed state
-            with self._stage("scenario"):
+            with span("scenario"):
                 with self._engine_lock:
                     batch = next(gen, None)
             if batch is None:
@@ -232,7 +237,7 @@ class StreamingSynthesizer:
             # the fallback synthesizes and synchronizes on the host, so it
             # gets its own stage, as in the JAX executor
             section = "fallback_direct" if fallback else "host_prep+dispatch"
-            with self._stage(section):
+            with span(section):
                 if use_kp and not fallback and self.bandlimit:
                     out, self._bl_state = synth_block_cboc_bandlimited(
                         batch,
@@ -253,7 +258,9 @@ class StreamingSynthesizer:
                         device=self.device,
                         apply_gain=self.apply_gain,
                     )
-                    fut = self._hand_over(synth_kp_packed(inputs, n_k=self.nsamples // P_GRID))
+                    with span("launch"):
+                        out = synth_kp_packed(inputs, n_k=self.nsamples // P_GRID)
+                    fut = self._hand_over(out)
                 elif fallback:
                     # an epoch's code Doppler left the kp envelope (a live
                     # position teleport or a reallocation transition):
@@ -291,22 +298,23 @@ class StreamingSynthesizer:
         """Drain the blocks in order until the scenario ends or stop() is
         called: at depth 1 dispatch block k+1, then drain block k, on this
         thread; at depth >= 2 a producer thread dispatches up to
-        `pipeline_depth` blocks ahead.  The stage timers run on both
-        threads (disjoint section names), so their sum can exceed the
-        wall time."""
+        `pipeline_depth` blocks ahead.  The run's Timer is installed on
+        both threads (profiling.installed; disjoint section names), so
+        the sum of its stages can exceed the wall time."""
         t0 = time.perf_counter()
-        if self.pipeline_depth == 1:
-            pending = None
-            for item in self._device_blocks():
+        with installed(self.stats.timer):
+            if self.pipeline_depth == 1:
+                pending = None
+                for item in self._device_blocks():
+                    if pending is not None:
+                        self._drain(*pending)
+                    pending = item
+                    if self._stop:
+                        break
                 if pending is not None:
                     self._drain(*pending)
-                pending = item
-                if self._stop:
-                    break
-            if pending is not None:
-                self._drain(*pending)
-        else:
-            self._run_threaded()
+            else:
+                self._run_threaded()
         self.stats.wall_s = time.perf_counter() - t0
         return self.stats
 
@@ -324,7 +332,7 @@ class StreamingSynthesizer:
             # a wait on a full queue; 2 ms bounds the dead time a handoff
             # can add in steady state
             try:
-                with on_device:
+                with on_device, installed(self.stats.timer):
                     for item in self._device_blocks():
                         while not self._stop:
                             try:
@@ -362,19 +370,19 @@ class StreamingSynthesizer:
 
     def _drain(self, batch, fut, n_real: int) -> None:
         if self.drain_host:
-            with self._stage("device_wait+fetch"):
+            with span("device_wait+fetch"):
                 host = fut.result() if isinstance(fut, _Fetch) else fut
                 if host.ndim == 3:  # packed int32 I/Q -> free int16 view
                     host = packed_to_iq16(host)
                 host = host[:n_real, : 2 * self.nsamples]
-            with self._stage("sink_write"):
+            with span("sink_write"):
                 self.sink.write(host)
         else:
             # the device-resident sink decides its own synchronization
             # point.  kp blocks keep the packed int32 (B, n_k, 1300)
             # layout, the band-limited and direct ones (B, 2 nsamples)
             # int16; a block is sliced only when it is partial
-            with self._stage("sink_write"):
+            with span("sink_write"):
                 shape = tuple(fut.shape)
                 if len(shape) == 3:
                     self.sink.write(fut if shape[0] == n_real else fut[:n_real])

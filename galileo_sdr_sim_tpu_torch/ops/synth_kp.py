@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..constants import LUT_AMPLITUDE, NUM_IQ_SAMPLES, SAMP_RATE
+from ..profiling import span
 from ..scenario import EpochBatch
 from .synth import _pad_batch
 
@@ -299,27 +300,48 @@ def prepare_kp_inputs(
     `code_cache` while the channel->PRN map, the layout and the table
     width hold.  12-grid CBOC tables add `cboc_ab` (their factorization
     is checked when the table is built); `apply_gain` adds `chan_gain`.
-    nsamples must be a multiple of 8*1300 = 10400."""
-    if compact:
-        batch = compact_channels(batch)
-    if pad_epochs is not None and batch.f_code.shape[0] != pad_epochs:
-        batch = _pad_batch(batch, pad_epochs)
-    if nsamples % (ROWS * P_GRID) != 0:
-        raise ValueError(f"nsamples={nsamples} is not a multiple of {ROWS * P_GRID}")
-    width = batch.codes_b.shape[1]
-    if width not in (ROWS * COLS, CBOC_WIDTH):
-        raise ValueError(
-            "the (K,p) engines support sine-BOC(1,1) half-chip tables and "
-            "12-grid CBOC value tables; other geometries use the direct "
-            f"engine (got table width {width})"
-        )
-    cboc_ab = cboc_weights(batch.codes_b) if width == CBOC_WIDTH else None
+    nsamples must be a multiple of 8*1300 = 10400.
 
-    a = batch.f_code * DELT  # chips/sample, float64
-    mu = 2.0 * a * P_GRID - COLS  # half-chips of drift per K step
-    fc = batch.f_carr * DELT  # cycles/sample
-    fc_k = fc * P_GRID
-    fc_k = fc_k - np.floor(fc_k)
+    Spans (profiling.span): `seed` (compaction, padding, the float64
+    seeding, `kernel_operands`), `codes` (a window-table rebuild, so it
+    counts them), `h2d` (`operands_to_device`)."""
+    with span("seed"):
+        if compact:
+            batch = compact_channels(batch)
+        if pad_epochs is not None and batch.f_code.shape[0] != pad_epochs:
+            batch = _pad_batch(batch, pad_epochs)
+        if nsamples % (ROWS * P_GRID) != 0:
+            raise ValueError(f"nsamples={nsamples} is not a multiple of {ROWS * P_GRID}")
+        width = batch.codes_b.shape[1]
+        if width not in (ROWS * COLS, CBOC_WIDTH):
+            raise ValueError(
+                "the (K,p) engines support sine-BOC(1,1) half-chip tables and "
+                "12-grid CBOC value tables; other geometries use the direct "
+                f"engine (got table width {width})"
+            )
+        cboc_ab = cboc_weights(batch.codes_b) if width == CBOC_WIDTH else None
+
+        a = batch.f_code * DELT  # chips/sample, float64
+        mu = 2.0 * a * P_GRID - COLS  # half-chips of drift per K step
+        fc = batch.f_carr * DELT  # cycles/sample
+        fc_k = fc * P_GRID
+        fc_k = fc_k - np.floor(fc_k)
+
+        host = dict(
+            cp0=np.asarray(batch.code_phase0, np.float32),  # (B, C) [chips]
+            two_a=np.asarray(2.0 * a, np.float32),  # half-chips/sample
+            mu=np.asarray(mu, np.float32),
+            carr0=np.asarray(batch.carr_phase0, np.float32),
+            fc=np.asarray(fc, np.float32),
+            fc_k=np.asarray(fc_k, np.float32),
+            sym_win=batch.sym_win.astype(np.float32),  # (B, C, 32) +-1
+            pilot_win=batch.pilot_win.astype(np.float32),
+        )
+        if cboc_ab is not None:
+            host["cboc_ab"] = cboc_ab
+        if apply_gain:
+            host[GAIN_OPERAND] = channel_gain(batch.gain)
+        ops = kernel_operands(host)
 
     # the PRN map tells the layouts apart: a compacted map is 8 slots
     # long, an uncompacted one MAX_CHAN, and they are equal only when
@@ -328,28 +350,16 @@ def prepare_kp_inputs(
     if code_cache is not None and code_cache.get("key") == key:
         vpack_rs = code_cache["vpack_rs"]
     else:
-        codes_b, codes_c = batch.codes_b, batch.codes_c
-        if cboc_ab is not None:
-            codes_b, codes_c = cboc_sign_banks(codes_b, codes_c, cboc_ab)
-        vpack_rs = torch.from_numpy(_pack_codes_rs(codes_b, codes_c)).to(device)
-        if code_cache is not None:
-            code_cache.update(key=key, vpack_rs=vpack_rs)
+        with span("codes"):
+            codes_b, codes_c = batch.codes_b, batch.codes_c
+            if cboc_ab is not None:
+                codes_b, codes_c = cboc_sign_banks(codes_b, codes_c, cboc_ab)
+            vpack_rs = torch.from_numpy(_pack_codes_rs(codes_b, codes_c)).to(device)
+            if code_cache is not None:
+                code_cache.update(key=key, vpack_rs=vpack_rs)
 
-    host = dict(
-        cp0=np.asarray(batch.code_phase0, np.float32),  # (B, C) [chips]
-        two_a=np.asarray(2.0 * a, np.float32),  # half-chips/sample
-        mu=np.asarray(mu, np.float32),
-        carr0=np.asarray(batch.carr_phase0, np.float32),
-        fc=np.asarray(fc, np.float32),
-        fc_k=np.asarray(fc_k, np.float32),
-        sym_win=batch.sym_win.astype(np.float32),  # (B, C, 32) +-1
-        pilot_win=batch.pilot_win.astype(np.float32),
-    )
-    if cboc_ab is not None:
-        host["cboc_ab"] = cboc_ab
-    if apply_gain:
-        host[GAIN_OPERAND] = channel_gain(batch.gain)
-    out = operands_to_device(kernel_operands(host), device)
+    with span("h2d"):
+        out = operands_to_device(ops, device)
     out["vpack_rs"] = vpack_rs
     return out
 
