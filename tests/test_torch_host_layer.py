@@ -5,18 +5,23 @@ The port keeps a copy of each JAX-free module of the reference it needs
 sinks, noise, the receiver's acquisition stage, the CLI's parser and
 helpers), so that it imports nothing of the JAX package.  Each copy is
 held to its original here with exact equality (`==`, `np.array_equal`):
-they are the same code, so no tolerance applies.  The scenario cases
-walk the fixture scene at B = 8 epochs a block: 60 s of the default
-sine-BOC model (two 30 s I/NAV subframes, which between them carry every
-word type, the fec2 Reed-Solomon pages included), and 30 s of CBOC,
-without ionosphere, with the dummy almanac, and with a user-motion
-trajectory that jumps (a channel reallocation at the 30 s boundary and a
-block outside the kp engine's code-Doppler envelope).  The checkpoint
-copy writes the same snapshot as its original, and a snapshot the JAX
-package wrote resumes in the port; the receiver's decode and PVT copies
-(`rx`, `rx_pvt`) give their originals' results on pages of the fixture
-nav file made by the port's I/NAV encoder, with seeded symbol errors,
-and on seeded pseudoranges."""
+they do the same float64 arithmetic, so no tolerance applies.  The
+scenario cases walk the fixture scene at B = 8 epochs a block: 60 s of
+the default sine-BOC model (two 30 s I/NAV subframes, which between them
+carry every word type, the fec2 Reed-Solomon pages included), and 30 s
+of CBOC, without ionosphere, with the dummy almanac, and with a
+user-motion trajectory that jumps (a channel reallocation at the 30 s
+boundary and a block outside the kp engine's code-Doppler envelope).  A
+live position, which the port steps a block at a time and the JAX
+package an epoch at a time, gives the same batches at B = 1, 3 and 8 (a
+static, a moving and a jumping receiver, and a TOW correction that comes
+mid-run, which the port applies at the next chunk it steps), and each
+position is read once, no earlier than the JAX package reads it; a TOW
+correction moves the clock before a chunk is sized.  The checkpoint copy writes the same snapshot as its
+original, and a snapshot the JAX package wrote resumes in the port; the
+receiver's decode and PVT copies (`rx`, `rx_pvt`) give their originals'
+results on pages of the fixture nav file made by the port's I/NAV
+encoder, with seeded symbol errors, and on seeded pseudoranges."""
 
 import dataclasses
 
@@ -48,6 +53,7 @@ from galileo_sdr_sim_tpu_torch.ops.synth_kp import (
     mu_in_envelope, packed_to_iq16, prepare_kp_inputs,
 )
 from galileo_sdr_sim_tpu_torch.ops.synth_kp_cuda import synth_kp_packed
+from galileo_sdr_sim_tpu_torch.profiling import Timer, installed
 from galileo_sdr_sim_tpu_torch.rinex import read_rinex_v3 as t_read_rinex
 
 from _torch_parity import CPU, LLH, NAV, START
@@ -111,6 +117,152 @@ def test_scenario_engine_batches_match(case, tmp_path):
     assert n_epochs == len(t_engine) > 0
     if case == "motion_jump":
         assert len(prn_maps) >= 2 and outside >= 1, (prn_maps, outside)
+
+
+class _TowRelay:
+    """A nav-bit relay that relays no symbols and reports a TOW correction
+    of `shift` seconds once the position has been read `at` times (before
+    epoch `at` is stepped), or from the start (`at` None)."""
+
+    def __init__(self, reads: list, at: int | None, shift: float = 0.3):
+        self._reads, self._at, self._shift = reads, at, shift
+
+    @property
+    def tow_correction(self):
+        return self._shift if self._at is None or self._reads[0] >= self._at else None
+
+    def pop_bits(self, prn, n):
+        return []
+
+
+def _live_position(case: str, tow_at: int):
+    """-> (a live position callback, a bit relay or None): the fixture site
+    on every read ("static"), a receiver that moves on every read
+    ("moving"), or the fixture site for the first 150 reads and JUMP_LLH
+    after them ("jump", and "tow" behind a _TowRelay that reports 0.3 s
+    before epoch `tow_at`: the 30 s reallocation then changes the channel
+    map)."""
+    reads = [0]
+
+    def read():
+        reads[0] += 1
+        if case == "moving":
+            return np.array(LLH) + np.array([2e-6, -3e-6, 0.05]) * reads[0]
+        return np.array(JUMP_LLH if case in ("jump", "tow") and reads[0] > 150 else LLH)
+
+    return read, _TowRelay(reads, tow_at) if case == "tow" else None
+
+
+def _live_engines(case: str, yields: dict | None = None, reads: list | None = None,
+                  tow_at: dict | None = None):
+    """[JAX engine, port engine] of the fixture scene with live position
+    `case`, 31 s (across the 30 s reallocation) or 6 s ("moving"); under
+    "tow" the relay of each package reports the correction before the
+    epoch `tow_at` gives it (282 by default); with `reads`, each engine's
+    callback appends (package, yields[package]) to it: the batches its
+    consumer had been handed at the read."""
+    duration = 6.0 if case == "moving" else 31.0
+    engines = []
+    for name, read_nav, scn, cli in (("jax", j_read_rinex, jscn, jcli),
+                                     ("port", t_read_rinex, tscn, tcli)):
+        nav = read_nav(str(NAV))
+        g0 = scn.scenario_start_time(nav, cli._parse_time(START))
+        live, relay = _live_position(case, (tow_at or {}).get(name, 282))
+        if reads is not None:
+            def live(live=live, name=name):
+                reads.append((name, yields[name]))
+                return live()
+        engines.append(scn.ScenarioEngine(nav, scn.PositionProvider(live=live), g0, duration,
+                                          bit_source=relay))
+    return engines
+
+
+@pytest.mark.parametrize("block_epochs", [1, 3, 8])
+@pytest.mark.parametrize("case", ["static", "moving", "jump", "tow"])
+def test_live_engine_batches_match(case, block_epochs):
+    """The port steps a live position a block at a time (one `_step_block`
+    a block); the JAX package an epoch at a time (`_step`).  Every batch
+    is the same, bit for bit, with the same lengths, the short ones at the
+    channel-map change of "jump" and "tow" included.  Under "tow" the TOW
+    correction, which a relay sends at no set epoch, arrives before epoch
+    282: the JAX package applies it there, the port at the first epoch of
+    the next chunk it steps (282 at B = 1, 283 at B = 3, 289 at B = 8), so
+    the port is held to a JAX engine whose correction arrives before that
+    epoch; in both the 30 s reallocation moves from epoch 299 to 296."""
+    tow_at = None
+    if case == "tow":
+        sizes = [b.f_code.shape[0] for b in _live_engines(case)[1].batches(block_epochs)]
+        starts = np.cumsum([1, *sizes]).tolist()
+        landed = min(s for s in starts if s >= 282)
+        assert landed == {1: 282, 3: 283, 8: 289}[block_epochs]
+        tow_at = {"jax": landed, "port": 282}
+    j_engine, t_engine = _live_engines(case, tow_at=tow_at)
+    fields = [f.name for f in dataclasses.fields(tscn.EpochBatch)]
+    lengths, prn_maps = [], []
+    for bj, bt in zip(j_engine.batches(block_epochs), t_engine.batches(block_epochs),
+                      strict=True):
+        for name in fields:
+            a, b = getattr(bt, name), getattr(bj, name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (case, len(lengths), name)
+        lengths.append(bt.f_code.shape[0])
+        prn_maps.append(tuple(bt.prn))
+    assert sum(lengths) == len(t_engine) > 0
+    if case in ("jump", "tow"):
+        # a batch ends at the 30 s reallocation, which changes the map
+        cut = 296 if case == "tow" else 299
+        ends = np.cumsum(lengths).tolist()
+        assert cut in ends and prn_maps[ends.index(cut)] != prn_maps[ends.index(cut) + 1]
+        assert len(set(prn_maps)) == 2
+
+
+def test_tow_correction_moves_the_clock_before_the_chunk_is_sized():
+    """A TOW correction of 28 s moves the 30 s boundary from epoch 299 to
+    epoch 19, inside the first chunk of 32 epochs that a static position
+    steps: the chunk is sized on the corrected clock, so it ends at epoch
+    19 and the reallocation happens there, and every table equals the one
+    `_step` gives an epoch at a time (a live position at B = 1)."""
+    nav = t_read_rinex(str(NAV))
+    g0 = tscn.scenario_start_time(nav, tcli._parse_time(START))
+    tables, reallocs = [], []
+    for position in (tscn.PositionProvider(llh_deg=np.array(LLH)),
+                     tscn.PositionProvider(live=lambda: np.array(LLH))):
+        engine = tscn.ScenarioEngine(nav, position, g0, 4.0,
+                                     bit_source=_TowRelay([0], None, 28.0))
+        timer = Timer()
+        with installed(timer):
+            tables.append(list(engine.epochs()))
+        reallocs.append(timer.counts.get("realloc", 0))
+    assert reallocs == [1, 1]
+    assert len(tables[0]) == len(tables[1]) == 39
+    for a, b in zip(*tables):
+        for f in dataclasses.fields(a):
+            assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+@pytest.mark.parametrize("block_epochs", [1, 3, 8])
+def test_live_position_is_read_once_an_epoch_no_earlier(block_epochs):
+    """Each epoch's live position is read once, in epoch order, after the
+    batch before its own was yielded and before its own is, also at the
+    channel-map change; never earlier than the JAX package's engine reads
+    it (which at B > 1 steps each batch's next epoch before yielding it),
+    and at B = 1 as it does."""
+    yields, reads = {"jax": 0, "port": 0}, []
+    engines = _live_engines("jump", yields, reads)
+    sizes = {}
+    for name, engine in zip(("jax", "port"), engines):
+        sizes[name] = []
+        for batch in engine.batches(block_epochs):
+            sizes[name].append(batch.f_code.shape[0])
+            yields[name] += 1
+    assert sizes["port"] == sizes["jax"]
+    seen = {name: [y for who, y in reads if who == name] for name in ("jax", "port")}
+    # the constructor's read of epoch 0, then one read an epoch
+    assert len(seen["port"]) == len(seen["jax"]) == 1 + len(engines[1])
+    block_of = np.repeat(np.arange(len(sizes["port"])), sizes["port"])
+    assert seen["port"] == [0, *block_of.tolist()]
+    assert all(p >= j for p, j in zip(seen["port"], seen["jax"]))
+    if block_epochs == 1:
+        assert seen["port"] == seen["jax"]
 
 
 def test_awgn_sink_matches():
@@ -233,23 +385,32 @@ def test_native_fifo_refuses_a_missing_source(tmp_path, monkeypatch):
 # --- checkpoint ---------------------------------------------------------------
 
 
-def _step(engine, blocks: int) -> None:
+def _step(engine, blocks: int) -> int:
+    """Hand out `blocks` batches of 8 epochs; -> the epochs handed out."""
     gen = engine.batches(8)
-    for _ in range(blocks):
-        next(gen)
+    return sum(next(gen).f_code.shape[0] for _ in range(blocks))
 
 
 @pytest.mark.parametrize("case, blocks, drained", [
     ("e1", 3, None), ("e1", 3, 8), ("cboc", 2, 8), ("motion_jump", 20, 144),
 ])
 def test_checkpoint_snapshots_match(case, blocks, drained, tmp_path):
-    """Each package's save_state on its own engine after the same blocks
-    (with `drained`, rewound to that epoch through the replay ring, as a
-    pipelined run's snapshot is) writes the same JSON and npz arrays."""
-    engines = _engines(case, tmp_path)
-    for engine, ckpt, name in zip(engines, (jckpt, tckpt), ("jax", "port")):
+    """Each package's save_state on its own engine after the same epochs
+    were handed out (with `drained`, rewound to that epoch through the
+    replay ring, as a pipelined run's snapshot is) writes the same JSON
+    and npz arrays.  The port's engine hands out `blocks` batches of 8,
+    which step no epoch ahead of the last batch; the JAX package's engine
+    hands out as many epochs one at a time (`epochs`), since its `batches`
+    steps the next batch's first epoch, and so at a chunk's end the next
+    chunk, before it yields a batch."""
+    j_engine, t_engine = _engines(case, tmp_path)
+    for engine in (j_engine, t_engine):
         engine._replay_keep = 32
-        _step(engine, blocks)
+    handed_out = _step(t_engine, blocks)
+    epochs = j_engine.epochs()
+    for _ in range(handed_out):
+        next(epochs)
+    for engine, ckpt, name in ((j_engine, jckpt, "jax"), (t_engine, tckpt, "port")):
         ckpt.save_state(engine, tmp_path / name, drained_iumd=drained)
     assert (tmp_path / "port.json").read_text() == (tmp_path / "jax.json").read_text()
     with np.load(tmp_path / "jax.npz") as a, np.load(tmp_path / "port.npz") as b:

@@ -18,7 +18,7 @@ from galileo_sdr_sim_tpu import scenario as jscn
 from galileo_sdr_sim_tpu.io.stream import StreamingSynthesizer as JaxStream
 from galileo_sdr_sim_tpu.rinex import read_rinex_v3 as j_read_rinex
 from galileo_sdr_sim_tpu_torch.checkpoint import load_state, save_state
-from galileo_sdr_sim_tpu_torch.harness import AbsSumSink
+from galileo_sdr_sim_tpu_torch.harness import JUMP_LLH, AbsSumSink
 from galileo_sdr_sim_tpu_torch.io.sinks import NullSink
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
 from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
@@ -269,6 +269,57 @@ def test_live_position_resume_replays_inflight_epochs(tmp_path):
         for f in ("f_carr", "code_phase0", "carr_phase0", "sym_win"):
             assert np.array_equal(getattr(ta, f), getattr(tb, f)), f
         assert ta.grx_sec == tb.grx_sec
+
+
+@pytest.mark.parametrize("scene, drained", [("static", 12), ("static", 16), ("jump", 292)])
+def test_live_position_batches_resume_from_a_rewound_snapshot(tmp_path, scene, drained):
+    """batches(8) over a live position, which steps a block at a time, with
+    the executor's replay ring at pipeline depth 2 ((2 + 2) * 8 epochs)
+    and the producer two blocks or more ahead of the sink; a snapshot
+    rewound to the sink's epoch resumes with the in-flight tables
+    replayed, then stepped ones, and each table from epoch `drained` + 1
+    on equals an uninterrupted run's.  Static: at 12, inside the second
+    block, the resumed run's second batch is four replayed tables and four
+    stepped; at 16, at its end.  "jump": the receiver jumps at epoch 150
+    and the 30 s reallocation at epoch 299 changes the channel map inside
+    the replayed tables, so the first resumed batch ends there."""
+    nav = fixture_engine(0.1).nav
+    duration = 32.0 if scene == "jump" else 6.0
+
+    def mk(stepped=0):
+        """An engine whose callback reads as if `stepped` epochs had been."""
+        reads = [stepped]
+
+        def live():
+            reads[0] += 1
+            return np.array(JUMP_LLH if scene == "jump" and reads[0] > 150 else LLH)
+
+        return ScenarioEngine(nav, PositionProvider(live=live), fixture_engine(0.1).g0, duration)
+
+    def tables(batches):
+        per_epoch = {f: np.concatenate([getattr(b, f) for b in batches])
+                     for f in ("grx_sec", "f_carr", "f_code", "code_phase0", "carr_phase0",
+                               "sym_win", "pilot_win", "gain")}
+        per_epoch["prn"] = np.concatenate([np.tile(b.prn, (b.f_code.shape[0], 1))
+                                           for b in batches])
+        return per_epoch
+
+    eng = mk()
+    eng._replay_keep = (2 + 2) * 8
+    gen, ahead = eng.batches(8), 0
+    while ahead <= drained + 16:
+        ahead += next(gen).f_code.shape[0]
+    save_state(eng, tmp_path / "ck", drained_iumd=drained)
+    eng2 = mk(stepped=ahead)
+    assert load_state(eng2, tmp_path / "ck") == drained
+    resumed = list(eng2.batches(8, start=drained + 1))
+    whole = tables(list(mk().batches(8)))
+    got = tables(resumed)
+    sizes = [b.f_code.shape[0] for b in resumed]
+    assert sizes[:2] == ([7, 8] if scene == "jump" else [8, 8]), sizes
+    assert got["grx_sec"].size == whole["grx_sec"].size - drained > ahead - drained
+    for name, values in got.items():
+        assert np.array_equal(values, whole[name][drained:]), name
 
 
 def test_bandlimit_resume_restarts_the_filter_at_zeros(tmp_path):

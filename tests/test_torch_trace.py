@@ -40,7 +40,7 @@ SPANS = STAGES | {
 def live_engine(duration_s: float) -> scenario.ScenarioEngine:
     """The fixture scene with a live position source at the fixture site,
     as the benchmark's jobs and the command line's UDP position thread
-    run it: one `_step` an epoch."""
+    run it: one `_step_block` a block (one `_step` an epoch at B = 1)."""
     nav = read_rinex_v3(str(NAV))
     llh = np.array(LLH, np.float64)
     g0 = scenario.scenario_start_time(nav, cli._parse_time(START))
@@ -155,9 +155,9 @@ def test_producer_thread_spans_land_in_the_run_timer():
 
 
 def test_span_counts_are_the_events(monkeypatch):
-    """`scenario/nav_page` counts the pages the channels built, and
-    `host_prep+dispatch/codes` the window-table rebuilds: one while the
-    channel map holds."""
+    """`scenario/nav_page` counts the pages the channels built,
+    `scenario/geometry` the chunks stepped, and `host_prep+dispatch/codes`
+    the window-table rebuilds: one while the channel map holds."""
     built = []
 
     def counted(chan, *args):
@@ -165,14 +165,17 @@ def test_span_counts_are_the_events(monkeypatch):
         return regenerate_page(chan, *args)
 
     monkeypatch.setattr(scenario, "regenerate_page", counted)
-    for engine in (live_engine(6.0), fixture_engine(6.0)):  # `_step`, `_step_block`
+    # `_step` an epoch, `_step_block` a live block, `_step_block` a chunk
+    # of 32 static epochs: 59 epochs in 59, 15 and 2 geometry entries
+    for engine, block_epochs, geometry in ((live_engine(6.0), 1, 59), (live_engine(6.0), 4, 15),
+                                           (fixture_engine(6.0), 4, 2)):
         built.clear()
-        synth = StreamingSynthesizer(engine, CollectSink(), device=CPU, block_epochs=4,
-                                     nsamples=10400)
+        synth = StreamingSynthesizer(engine, CollectSink(), device=CPU,
+                                     block_epochs=block_epochs, nsamples=10400)
         counts = synth.run().timer.counts
         assert len(built) >= 7 and counts["scenario/nav_page"] == len(built)
         assert counts["host_prep+dispatch/codes"] == 1
-        assert counts["scenario/geometry"] >= 1 and "scenario/realloc" not in counts
+        assert counts["scenario/geometry"] == geometry and "scenario/realloc" not in counts
 
 
 def test_engine_without_a_timer_gives_the_same_tables():
@@ -189,7 +192,8 @@ def test_engine_without_a_timer_gives_the_same_tables():
         for f in dataclasses.fields(a):
             assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
     assert {"geometry", "nav_page", "pack"} <= set(timer.counts)
-    assert timer.counts["geometry"] == 29 and timer.counts["pack"] == 8
+    # one geometry entry a block: 29 epochs are 7 blocks of 4 and one of 1
+    assert timer.counts["geometry"] == 8 and timer.counts["pack"] == 8
 
 
 def test_span_paths_nesting_and_no_op():
