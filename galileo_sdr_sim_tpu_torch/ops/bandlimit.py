@@ -17,6 +17,13 @@ XLA convolution, not a Pallas kernel, so here it is
 `torch.nn.functional.conv1d`, in full float32: on a GPU cuDNN would
 otherwise run float32 convolutions in TF32 (a 10-bit mantissa), which
 moves outputs by several LSB.
+
+Spans (profiling.span; nothing without an installed Timer): `launch`
+around each phase's kernel call (12 a block) and `filter` around the
+whole filter (1 a block).  Called from the stream they are the sections
+`host_prep+dispatch/launch` and `host_prep+dispatch/filter`.  On a GPU
+`filter` is not dispatch alone: the weights' pageable host-to-device copy
+inside it waits for the block's 12 kernel pairs on the stream.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import NUM_IQ_SAMPLES, SAMP_RATE
+from ..profiling import span
 from ..scenario import EpochBatch
 from .synth_kp import CBOC_WIDTH, P_GRID, prepare_kp_inputs
 from .synth_kp_cuda import synth_kp_int16
@@ -100,7 +108,7 @@ def filter_block(stacked: torch.Tensor, hist: torch.Tensor, n_real: int) -> tupl
     hands a seamless history to the next one."""
     n_os, B, two_n = stacked.shape
     N = two_n // 2
-    with torch.inference_mode():
+    with span("filter"), torch.inference_mode():
         x = stacked.to(torch.float32)
         i_ph = x[:, :, 0::2].reshape(n_os, -1)  # (OS, L) time-ordered over B*N
         q_ph = x[:, :, 1::2].reshape(n_os, -1)
@@ -138,7 +146,8 @@ def synth_phases(
             apply_gain=apply_gain,
             device=device,
         )
-        phases.append(synth_kp_int16(inputs, n_k=nsamples // P_GRID))
+        with span("launch"):
+            phases.append(synth_kp_int16(inputs, n_k=nsamples // P_GRID))
     return torch.stack(phases)
 
 

@@ -28,9 +28,10 @@ The port's copy differs from the JAX package's text in two ways
 * its spans (profiling.span; nothing without an installed Timer):
   `geometry` (the receiver position, the stacked ephemerides,
   `compute_range`, `code_phase_state`, and in `_step_block` the gains),
-  `nav_page` (each `regenerate_page`), `realloc` (the 30 s refresh) and
-  `pack` (`_pack`).  In the streaming executor they are sections
-  `scenario/<name>`;
+  `nav_page` (each `regenerate_page`), `realloc` (the 30 s refresh),
+  `pack` (`_pack`) and inside it `codes` (the model's three code table
+  reads and the row copies; under CBOC each read rebuilds the table).
+  In the streaming executor they are sections `scenario/<path>`;
 * `epochs` and `batches` take stepped tables from one buffer (`_take`),
   and `batches` is one loop for every position source.  A live position
   steps each batch in one `_step_block`, where the JAX package steps an
@@ -561,15 +562,16 @@ class ScenarioEngine:
         with span("pack"):
             prn = tabs[0].prn
             boc_len = self.model.boc_length
-            # dtype follows the model's tables: int8 ±1 half-chips for
-            # sine-BOC, float32 waveform values for CBOC (models/cboc.py)
-            code_dtype = self.model.data_codes.dtype
-            cb = np.zeros((MAX_CHAN, boc_len), code_dtype)
-            cc = np.zeros((MAX_CHAN, boc_len), code_dtype)
-            active = prn > 0
-            if np.any(active):
-                cb[active] = self.model.data_codes[prn[active] - 1]
-                cc[active] = self.model.pilot_codes[prn[active] - 1]
+            with span("codes"):
+                # dtype follows the model's tables: int8 ±1 half-chips for
+                # sine-BOC, float32 waveform values for CBOC (models/cboc.py)
+                code_dtype = self.model.data_codes.dtype
+                cb = np.zeros((MAX_CHAN, boc_len), code_dtype)
+                cc = np.zeros((MAX_CHAN, boc_len), code_dtype)
+                active = prn > 0
+                if np.any(active):
+                    cb[active] = self.model.data_codes[prn[active] - 1]
+                    cc[active] = self.model.pilot_codes[prn[active] - 1]
             return EpochBatch(
                 grx_sec=np.array([t.grx_sec for t in tabs]),
                 prn=prn.copy(),
