@@ -60,8 +60,9 @@ def kp_shard(inputs: dict, n_sat: int, n_time: int, sat: int, time: int) -> dict
 
 def batch_to_device(batch: EpochBatch, device: torch.device) -> dict:
     """Every array field of an `EpochBatch` as a tensor on `device`, dtype
-    unchanged (float64 seeds stay float64)."""
+    unchanged (float64 seeds stay float64), copied: the code rows are
+    read-only, shared by the batches of one channel map."""
     return {
-        f.name: torch.from_numpy(np.ascontiguousarray(getattr(batch, f.name))).to(device)
+        f.name: torch.from_numpy(np.array(getattr(batch, f.name), order="C")).to(device)
         for f in dataclasses.fields(batch)
     }

@@ -31,10 +31,16 @@ as the any-geometry reference path.  At 2.6 Msps the 6.138 MHz sc6
 component is above Nyquist — pointwise sampling is the honest
 representation at this rate (a band-limited front end would suppress
 it; the receiver-facing sc1 term is exact).
+
+Each component's table is built once a process (`_cboc_table` is
+cached, as `codes.boc_chips` is) and is read-only: every reader shares
+the one array, and a write into it raises.  The scenario engine keeps a
+block's code rows while the channel map holds (scenario.py `_pack`).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,14 +62,18 @@ def _subcarrier_signs() -> tuple[np.ndarray, np.ndarray]:
     return sc1, sc6
 
 
+@functools.cache
 def _cboc_table(component: str, anti: bool) -> np.ndarray:
-    """(50, 12*4092) float32 pointwise CBOC values for one component."""
+    """(50, 12*4092) float32 pointwise CBOC values for one component,
+    built once and read-only (shared by every caller)."""
     chips = codes.primary_chips(component).astype(np.float32)  # (50, 4092)
     sc1, sc6 = _subcarrier_signs()
     wave = (ALPHA * sc1 + (-BETA if anti else BETA) * sc6).astype(np.float32)
-    return (chips[:, :, None] * wave[None, None, :]).reshape(
+    table = (chips[:, :, None] * wave[None, None, :]).reshape(
         chips.shape[0], CA_SEQ_LEN_E1 * CBOC_SUBDIV
     )
+    table.setflags(write=False)
+    return table
 
 
 @dataclass(frozen=True)

@@ -91,8 +91,10 @@ def prepare_device_inputs(
     if code_cache is not None and code_cache.get("key") == key:
         codes_b, codes_c = code_cache["b"], code_cache["c"]
     else:
-        codes_b = torch.from_numpy(np.ascontiguousarray(batch.codes_b)).to(device)
-        codes_c = torch.from_numpy(np.ascontiguousarray(batch.codes_c)).to(device)
+        # copies: the batch's rows are read-only, shared by the batches
+        # of one channel map (scenario.py `_pack`)
+        codes_b = torch.from_numpy(np.array(batch.codes_b, order="C")).to(device)
+        codes_c = torch.from_numpy(np.array(batch.codes_c, order="C")).to(device)
         if code_cache is not None:
             code_cache.update(key=key, b=codes_b, c=codes_c)
 

@@ -23,15 +23,20 @@ Timing parity notes (galileo-sdr.cpp):
   counters are re-derived analytically each epoch from the pseudorange
   (computeCodePhase), exactly like the reference.
 
-The port's copy differs from the JAX package's text in two ways
+The port's copy differs from the JAX package's text in three ways
 (tests/test_torch_host_layer.py holds the tables equal):
 * its spans (profiling.span; nothing without an installed Timer):
   `geometry` (the receiver position, the stacked ephemerides,
   `compute_range`, `code_phase_state`, and in `_step_block` the gains),
   `nav_page` (each `regenerate_page`), `realloc` (the 30 s refresh),
-  `pack` (`_pack`) and inside it `codes` (the model's three code table
-  reads and the row copies; under CBOC each read rebuilds the table).
-  In the streaming executor they are sections `scenario/<path>`;
+  `pack` (`_pack`) and inside it `codes` (the block's code rows), and
+  inside that `rows` (the rows built anew from the model's tables: it
+  opens only when the channel map changes, so its entries count the
+  rebuilds, the maps a job stepped).  In the streaming executor they are
+  sections `scenario/<path>`;
+* `_pack` keeps the last block's code rows, read-only, while the PRN
+  map holds (the JAX package copies the rows from the tables every
+  block); the CBOC tables are built once a process (models/cboc.py);
 * `epochs` and `batches` take stepped tables from one buffer (`_take`),
   and `batches` is one loop for every position source.  A live position
   steps each batch in one `_step_block`, where the JAX package steps an
@@ -171,6 +176,9 @@ class ScenarioEngine:
         self._delt = 1.0 / SAMP_RATE
         self._block_T = NUM_IQ_SAMPLES * self._delt
         self._eph_cache: tuple = (None, None)
+        # (PRN map bytes, (codes_b, codes_c)): the rows of the last map
+        # packed, read-only, shared by every batch packed under that map
+        self._rows_cache: tuple = (None, None)
         # chunked-lookahead buffer: tabs computed but not yet yielded.
         # Engine state (grx, channels) is committed through the END of the
         # buffered chunk; checkpoint.py serializes the buffer so resume is
@@ -561,17 +569,12 @@ class ScenarioEngine:
     def _pack(self, tabs: list[EpochStateTable]) -> EpochBatch:
         with span("pack"):
             prn = tabs[0].prn
-            boc_len = self.model.boc_length
             with span("codes"):
-                # dtype follows the model's tables: int8 ±1 half-chips for
-                # sine-BOC, float32 waveform values for CBOC (models/cboc.py)
-                code_dtype = self.model.data_codes.dtype
-                cb = np.zeros((MAX_CHAN, boc_len), code_dtype)
-                cc = np.zeros((MAX_CHAN, boc_len), code_dtype)
-                active = prn > 0
-                if np.any(active):
-                    cb[active] = self.model.data_codes[prn[active] - 1]
-                    cc[active] = self.model.pilot_codes[prn[active] - 1]
+                key = prn.tobytes()
+                if self._rows_cache[0] != key:
+                    with span("rows"):
+                        self._rows_cache = (key, self._code_rows(prn))
+                cb, cc = self._rows_cache[1]
             return EpochBatch(
                 grx_sec=np.array([t.grx_sec for t in tabs]),
                 prn=prn.copy(),
@@ -585,6 +588,22 @@ class ScenarioEngine:
                 codes_b=cb,
                 codes_c=cc,
             )
+
+    def _code_rows(self, prn: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(MAX_CHAN, boc_length) data and pilot code rows of a PRN map,
+        zero rows for idle slots, read-only (batches in flight share
+        them).  The dtype follows the model's tables: int8 ±1 half-chips
+        for sine-BOC, float32 waveform values for CBOC (models/cboc.py)."""
+        data, pilot = self.model.data_codes, self.model.pilot_codes
+        cb = np.zeros((MAX_CHAN, self.model.boc_length), data.dtype)
+        cc = np.zeros((MAX_CHAN, self.model.boc_length), data.dtype)
+        active = prn > 0
+        if np.any(active):
+            cb[active] = data[prn[active] - 1]
+            cc[active] = pilot[prn[active] - 1]
+        cb.setflags(write=False)
+        cc.setflags(write=False)
+        return cb, cc
 
 
 def scenario_start_time(

@@ -22,6 +22,7 @@ from galileo_sdr_sim_tpu.models.e1 import E1_OS
 from galileo_sdr_sim_tpu.ops import synth_kp as jkp
 from galileo_sdr_sim_tpu_torch.convert import kp_inputs_from_jax
 from galileo_sdr_sim_tpu_torch.harness import CASES, cboc_bar, engine_bar, synthetic_operands
+from galileo_sdr_sim_tpu_torch.models import cboc as tcboc
 from galileo_sdr_sim_tpu_torch.ops import synth_kp as tkp
 from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
 
@@ -74,6 +75,23 @@ def test_gain_prep_matches_jax_exactly():
     assert g.max().item() == 1.0
     active = torch.from_numpy(tkp.compact_channels(batch).prn > 0)
     assert (g[:, active] > 0).all() and (g[:, ~active] == 0).all()
+
+
+@pytest.mark.parametrize("component, anti", [("data_codes", False), ("pilot_codes", True)])
+def test_port_cboc_tables_are_built_once_and_read_only(component, anti):
+    """The port's CBOC tables are built once a process: every read, of
+    every model instance, is the one array, which refuses a write, and
+    holds the values a fresh build and the JAX package's table hold."""
+    table = getattr(tcboc.E1_CBOC, component)
+    assert table is getattr(tcboc.E1_CBOC, component)
+    assert table is getattr(tcboc.E1CbocSignalModel(), component)
+    assert not table.flags.writeable
+    with pytest.raises(ValueError):
+        table[0, 0] = 0.0
+    fresh = tcboc._cboc_table.__wrapped__("E1C" if anti else "E1B", anti=anti)
+    assert fresh is not table and table.dtype == fresh.dtype == np.float32
+    np.testing.assert_array_equal(table, fresh)
+    np.testing.assert_array_equal(table, getattr(E1_CBOC, component))
 
 
 def test_cboc_weights_and_banks():

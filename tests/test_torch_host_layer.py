@@ -215,6 +215,57 @@ def test_live_engine_batches_match(case, block_epochs):
         assert len(set(prn_maps)) == 2
 
 
+class _FlippedE1(T_E1.__class__):
+    """A model with its own data table: the sine-BOC E1B rows negated."""
+
+    @property
+    def data_codes(self):
+        return -T_E1.data_codes
+
+
+@pytest.mark.parametrize("block_epochs", [1, 8])
+@pytest.mark.parametrize("model", ["e1", "cboc", "flipped"])
+def test_pack_keeps_the_code_rows_while_the_map_holds(model, block_epochs):
+    """The port's `_pack` builds a block's code rows only when the PRN map
+    changes and hands the same read-only rows to every batch of a map:
+    through the 30 s reallocation of a jumping live receiver, every
+    batch's rows equal rows copied afresh from the model's tables for
+    its map (a model with its own table gets its own rows), and the
+    `pack/codes/rows` span opens once a map."""
+    signal = {"e1": T_E1, "cboc": T_CBOC, "flipped": _FlippedE1()}[model]
+    nav = t_read_rinex(str(NAV))
+    g0 = tscn.scenario_start_time(nav, tcli._parse_time(START))
+    live, _ = _live_position("jump", 0)
+    engine = tscn.ScenarioEngine(nav, tscn.PositionProvider(live=live), g0, 31.0, model=signal)
+    timer = Timer()
+    maps, changes, prev = set(), 0, None
+    with installed(timer):
+        batches = list(engine.batches(block_epochs))
+    data, pilot = signal.data_codes, signal.pilot_codes
+    for batch in batches:
+        for got, table in ((batch.codes_b, data), (batch.codes_c, pilot)):
+            want = np.zeros((len(batch.prn), signal.boc_length), data.dtype)
+            for slot, prn in enumerate(batch.prn):
+                if prn > 0:
+                    want[slot] = table[prn - 1]
+            assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+            assert not got.flags.writeable
+        same = prev is not None and np.array_equal(batch.prn, prev.prn)
+        if prev is not None:
+            assert (batch.codes_b is prev.codes_b) is same
+            assert (batch.codes_c is prev.codes_c) is same
+        changes += not same
+        maps.add(batch.prn.tobytes())
+        prev = batch
+    assert len(maps) == changes == 2
+    assert timer.counts["pack/codes/rows"] == len(maps)
+    assert timer.counts["pack/codes"] == timer.counts["pack"] == len(batches)
+    if model == "flipped":
+        active = batches[0].prn > 0
+        assert np.array_equal(batches[0].codes_b[active],
+                              -T_E1.data_codes[batches[0].prn[active] - 1])
+
+
 def test_tow_correction_moves_the_clock_before_the_chunk_is_sized():
     """A TOW correction of 28 s moves the 30 s boundary from epoch 299 to
     epoch 19, inside the first chunk of 32 epochs that a static position
