@@ -69,8 +69,10 @@ def compute_range(
     prange = dist - SPEED_OF_LIGHT * clk[..., 0]
 
     # receiver-side geodesy depends only on xyz (static across epochs in
-    # fixed-position scenarios) — single-entry cache
-    ukey = xyz.tobytes()
+    # fixed-position scenarios) — single-entry cache, keyed on the shape
+    # too: a one-epoch chunk's (1, 1, 3) position has the bytes of the
+    # (3,) one that channel allocation passes, and not its shapes
+    ukey = (xyz.shape, xyz.tobytes())
     if _user_cache.get("key") == ukey:
         user_llh, tmat = _user_cache["val"]
     else:

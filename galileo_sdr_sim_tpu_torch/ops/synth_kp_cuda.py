@@ -79,7 +79,7 @@ launch_count = 0
 launch_counts = dict.fromkeys(REPLACES, 0)
 int16_launch_count = 0
 
-_libs: dict[bool, tuple[ctypes.CDLL, _build.Built]] = {}
+_lib: tuple[ctypes.CDLL, _build.Built] | None = None
 
 
 def reset_counts() -> None:
@@ -135,10 +135,11 @@ def instantiation(inputs: dict, f32: bool = False) -> str:
     return name
 
 
-def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
+def library() -> tuple[ctypes.CDLL, _build.Built]:
     """Build (at first use) and load the kernel library."""
-    if fmad not in _libs:
-        built = _build.build(SOURCE, (f"-fmad={'true' if fmad else 'false'}",))
+    global _lib
+    if _lib is None:
+        built = _build.build(SOURCE, (f"-fmad={'true' if FMAD else 'false'}",))
         lib = _build.load(built)
         lib.synth_kp_v5_planes_launch.argtypes = (
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -156,8 +157,8 @@ def library(fmad: bool = FMAD) -> tuple[ctypes.CDLL, _build.Built]:
         lib.synth_kp_v5_geometry.restype = None
         lib.synth_kp_v5_error_string.argtypes = [ctypes.c_int]
         lib.synth_kp_v5_error_string.restype = ctypes.c_char_p
-        _libs[fmad] = (lib, built)
-    return _libs[fmad]
+        _lib = (lib, built)
+    return _lib
 
 
 _WANT = {name: torch.int32 if name in INT_OPERANDS else torch.float32

@@ -181,14 +181,15 @@ def _live_engines(case: str, yields: dict | None = None, reads: list | None = No
 @pytest.mark.parametrize("case", ["static", "moving", "jump", "tow"])
 def test_live_engine_batches_match(case, block_epochs):
     """The port steps a live position a block at a time (one `_step_block`
-    a block); the JAX package an epoch at a time (`_step`).  Every batch
-    is the same, bit for bit, with the same lengths, the short ones at the
-    channel-map change of "jump" and "tow" included.  Under "tow" the TOW
-    correction, which a relay sends at no set epoch, arrives before epoch
-    282: the JAX package applies it there, the port at the first epoch of
-    the next chunk it steps (282 at B = 1, 283 at B = 3, 289 at B = 8), so
-    the port is held to a JAX engine whose correction arrives before that
-    epoch; in both the 30 s reallocation moves from epoch 299 to 296."""
+    a block, a one-epoch chunk at B = 1); the JAX package an epoch at a
+    time (its `_step`).  Every batch is the same, bit for bit, with the
+    same lengths, the short ones at the channel-map change of "jump" and
+    "tow" included.  Under "tow" the TOW correction, which a relay sends
+    at no set epoch, arrives before epoch 282: the JAX package applies it
+    there, the port at the first epoch of the next chunk it steps (282 at
+    B = 1, 283 at B = 3, 289 at B = 8), so the port is held to a JAX
+    engine whose correction arrives before that epoch; in both the 30 s
+    reallocation moves from epoch 299 to 296."""
     tow_at = None
     if case == "tow":
         sizes = [b.f_code.shape[0] for b in _live_engines(case)[1].batches(block_epochs)]
@@ -271,7 +272,10 @@ def test_tow_correction_moves_the_clock_before_the_chunk_is_sized():
     epoch 19, inside the first chunk of 32 epochs that a static position
     steps: the chunk is sized on the corrected clock, so it ends at epoch
     19 and the reallocation happens there, and every table equals the one
-    `_step` gives an epoch at a time (a live position at B = 1)."""
+    a live position gives at B = 1, stepped in one-epoch chunks.  Both
+    step through `_step_block`; the live B = 1 tables of a TOW-relayed
+    run are held to the JAX engine's `_step` by
+    test_live_engine_batches_match[tow-1]."""
     nav = t_read_rinex(str(NAV))
     g0 = tscn.scenario_start_time(nav, tcli._parse_time(START))
     tables, reallocs = [], []
@@ -288,6 +292,76 @@ def test_tow_correction_moves_the_clock_before_the_chunk_is_sized():
     for a, b in zip(*tables):
         for f in dataclasses.fields(a):
             assert np.array_equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+class _LateTowRelay(_TowRelay):
+    """A _TowRelay whose correction reads None on its first read and
+    `shift` seconds on every later one: the relay's thread sets it just
+    after the engine first looked."""
+
+    def __init__(self, shift: float):
+        super().__init__([0], None, shift)
+        self.n_reads = 0
+
+    @property
+    def tow_correction(self):
+        self.n_reads += 1
+        return None if self.n_reads == 1 else self._shift
+
+
+def test_tow_correction_is_read_once_a_chunk():
+    """The TOW correction is read once a chunk, before the chunk is sized.
+    A 28 s correction that is set just after the first chunk of 32 static
+    epochs was sized lands on the first epoch of the next chunk, epoch 33,
+    and moves the 30 s boundary to epoch 319: every stepped table on a
+    30 s boundary is followed by a reallocation.  (Read again inside the
+    chunk, it would move the clock under a chunk sized on the old one,
+    which would then cross the boundary at epoch 19 without ending
+    there, and skip that reallocation.)"""
+    nav = t_read_rinex(str(NAV))
+    g0 = tscn.scenario_start_time(nav, tcli._parse_time(START))
+    relay = _LateTowRelay(28.0)
+    engine = tscn.ScenarioEngine(nav, tscn.PositionProvider(llh_deg=np.array(LLH)), g0, 33.0,
+                                 bit_source=relay)
+    timer = Timer()
+    with installed(timer):
+        tables = list(engine.epochs())
+    assert len(tables) == 329
+    grx = np.array([t.grx_sec for t in tables])
+    # epoch e is tables[e - 1]
+    boundary = [e for e, sec in enumerate(grx, 1) if int(sec * 10.0 + 0.5) % 300 == 0]
+    assert timer.counts.get("realloc", 0) == len(boundary)
+    assert boundary == [319]
+    # the clock jumps between epochs 32 and 33
+    assert (np.flatnonzero(np.diff(grx) > 1.0) + 2).tolist() == [33]
+    assert relay.n_reads == 2
+
+
+@pytest.mark.parametrize("first", [(3,), (1, 1, 3)])
+def test_compute_range_user_cache_keys_on_the_shape(first):
+    """compute_range caches the receiver's geodesy of the last position.
+    A one-epoch chunk passes its position as (1, 1, 3), with the bytes of
+    the (3,) one that channel allocation passes at the same place; each
+    call after the other gives what it gives after another position."""
+    from galileo_sdr_sim_tpu_torch.constants import D2R
+    from galileo_sdr_sim_tpu_torch.geodesy import llh2xyz
+
+    nav = t_read_rinex(str(NAV))
+    g0 = tscn.scenario_start_time(nav, tcli._parse_time(START))
+    eph = next(recs[0] for recs in nav.eph if recs)
+    xyz = llh2xyz(np.array([LLH[0] * D2R, LLH[1] * D2R, LLH[2]]))
+    then = (1, 1, 3) if first == (3,) else (3,)
+
+    def at(shape, shift=0.0):
+        return compute_range(eph, nav.iono, g0.week, g0.sec, (xyz + shift).reshape(shape))
+
+    at(then, 1.0)
+    want = at(then)
+    at(first)
+    got = at(then)
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert np.shape(a) == np.shape(b) and np.array_equal(a, b), f.name
 
 
 @pytest.mark.parametrize("block_epochs", [1, 3, 8])

@@ -40,7 +40,7 @@ SPANS = STAGES | {
 def live_engine(duration_s: float) -> scenario.ScenarioEngine:
     """The fixture scene with a live position source at the fixture site,
     as the benchmark's jobs and the command line's UDP position thread
-    run it: one `_step_block` a block (one `_step` an epoch at B = 1)."""
+    run it: one `_step_block` a block (a one-epoch chunk at B = 1)."""
     nav = read_rinex_v3(str(NAV))
     llh = np.array(LLH, np.float64)
     g0 = scenario.scenario_start_time(nav, cli._parse_time(START))
@@ -165,8 +165,8 @@ def test_span_counts_are_the_events(monkeypatch):
         return regenerate_page(chan, *args)
 
     monkeypatch.setattr(scenario, "regenerate_page", counted)
-    # `_step` an epoch, `_step_block` a live block, `_step_block` a chunk
-    # of 32 static epochs: 59 epochs in 59, 15 and 2 geometry entries
+    # one `_step_block` a live epoch at B = 1, a live block at B = 4 and a
+    # chunk of 32 static epochs: 59 epochs in 59, 15 and 2 geometry entries
     for engine, block_epochs, geometry in ((live_engine(6.0), 1, 59), (live_engine(6.0), 4, 15),
                                            (fixture_engine(6.0), 4, 2)):
         built.clear()
