@@ -36,8 +36,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    at Boston), each with the launch counts set to 0 just before it and
    read just after: the default run (3 s), `--model cboc` and
    `--apply-gain` (1 s each), `--model cboc --apply-gain` (3 s) and
-   `--bandlimit --apply-gain` (3 s, 12 launches a block).  Each run's
-   instantiation was launched, the file holds every epoch, and PCPS
+   `--bandlimit --apply-gain` (3 s, one launch of the 12 phase copies
+   a block).  Each run's instantiation was launched, the file holds
+   every epoch, and PCPS
    acquisition finds every active PRN at its Doppler while absent PRNs
    stay at the noise floor (metric 8; 6, the level of the JAX package's
    band-limited acquisition test, where the run weights channels by
@@ -73,7 +74,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    just before it and read just after: 19 s from 23:30:18 (harness
    PVT_START) through cli.main, then the in-repo receiver's PVT fix
    (harness.pvt_fix) from the file, >= 5 satellites within 15 m and the
-   receive time within 1e-5 s; the same with --bandlimit (12 launches
+   receive time within 1e-5 s; the same with --bandlimit (one launch
    a block through the int16 view), >= 5 satellites within 20 m;
    --pipeline-depth 3, byte-identical to the depth-1 file with the same
    launches; a crash at depth 3 (a snapshot every 2-epoch block, the
@@ -614,7 +615,7 @@ def main() -> int:
                 check(a.metric < min_metric, f"{label}: false acquisition of absent PRN {prn}")
 
         def main_path(options: list, duration: float, name: str, min_metric: float,
-                      blocks_x: int = 1, env: dict | None = None, keep: str = "") -> dict:
+                      env: dict | None = None, keep: str = "") -> dict:
             """Drive cli.main once with the counts reset just before and
             read just after, with `env` set for the call; check the file
             and acquire it; keep it as tmp/`keep` when named."""
@@ -640,8 +641,8 @@ def main() -> int:
             model = E1_CBOC if "--model" in options or "--bandlimit" in options else E1_OS
             epochs = len(fixture_engine(NAV, duration, model))
             n_blocks = -(-epochs // B)
-            check(counts[name] == n_blocks * blocks_x,
-                  f"{label}: {counts[name]} launches of {name}, want {n_blocks * blocks_x}")
+            check(counts[name] == n_blocks,
+                  f"{label}: {counts[name]} launches of {name}, want {n_blocks}")
             check(sum(counts.values()) == counts[name], f"{label}: other instantiations ran")
             check(planes == counts[name], f"{label}: {planes} prologue launches for {counts[name]}")
             size = out.stat().st_size
@@ -664,7 +665,7 @@ def main() -> int:
             ["--model", "cboc", "--apply-gain"], 3, "synth_kp_v5_cboc_gain", MIN_METRIC_WEAK
         )["counts"]["synth_kp_v5_cboc_gain"]
         bl = main_path(["--bandlimit", "--apply-gain"], 3, "synth_kp_v5_cboc_gain",
-                       MIN_METRIC_WEAK, blocks_x=bandlimit.OS)
+                       MIN_METRIC_WEAK)
         launches["synth_kp_v5_cboc_gain"] += bl["counts"]["synth_kp_v5_cboc_gain"]
         check(bl["int16"] == bl["counts"]["synth_kp_v5_cboc_gain"],
               "the band-limited run did not go through the int16 view")
@@ -986,13 +987,13 @@ def main() -> int:
         pvt_argv = ["-e", str(NAV), "-U", "1", "-b", "1", "-t", PVT_START, "-l", llh,
                     "-d", str(PVT_SECONDS)]
         pvt_bars = {"default": 15.0, "bandlimit": 20.0}  # metres: the JAX package's bars
-        for label, options, name, per_block in (
-                ("default", [], "synth_kp_v5", 1),
-                ("bandlimit", ["--bandlimit"], "synth_kp_v5_cboc", bandlimit.OS)):
+        for label, options, name in (
+                ("default", [], "synth_kp_v5"),
+                ("bandlimit", ["--bandlimit"], "synth_kp_v5_cboc")):
             out = Path(tmp) / f"pvt_{label}.ishort"
             counts = drive([*pvt_argv, "-o", str(out), *options], f"PVT {label}")
-            only(counts, name, pvt_blocks * per_block, f"PVT {label}")
-            check(label != "bandlimit" or counts["int16"] == pvt_blocks * per_block,
+            only(counts, name, pvt_blocks, f"PVT {label}")
+            check(label != "bandlimit" or counts["int16"] == pvt_blocks,
                   "the band-limited PVT run did not go through the int16 view")
             tally(counts)
             check(out.stat().st_size == pvt_epochs * NSAMP * 4, f"PVT {label}: file size")

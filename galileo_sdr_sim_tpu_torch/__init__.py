@@ -15,8 +15,8 @@ tests.  The device layer is its own:
                        sine-BOC/CBOC, gain, int16 and f32 branches, in
                        its K-vectorised main loop (`vec_kt=True`);
 * ops/gather_probe.py  the in-tile gather probe (csrc/gather_probe.cu);
-* ops/bandlimit.py     the band-limited CBOC mode (12 kernel phases and a
-                       polyphase filter);
+* ops/bandlimit.py     the band-limited CBOC mode (12 phase streams from
+                       one kernel call, and a polyphase filter);
 * ops/synth.py         the direct engine (fallback and lut512 parity);
 * io/stream.py         the streaming executor;
 * parallel/mesh.py     the (time, sat) rank mesh over torch.distributed;

@@ -19,9 +19,9 @@ Routing per block, as the JAX executor does:
   kernel on a GPU, its plain PyTorch version on the CPU), for the
   sine-BOC and the CBOC signal models, with `apply_gain` weighting each
   channel;
-* under `bandlimit` (CBOC only), 12 phase-shifted kp calls and the
-  polyphase filter (ops/bandlimit.py), its overlap state carried across
-  blocks;
+* under `bandlimit` (CBOC only), one kp call of the block's 12
+  phase-shifted copies and the polyphase filter (ops/bandlimit.py), its
+  overlap state carried across blocks;
 * the direct engine (ops/synth.py), one epoch at a time, for blocks with
   an epoch outside the kp engine's code-Doppler envelope (MU_MAX).  As
   in the JAX executor, such a block ignores `apply_gain` and, under

@@ -2,8 +2,12 @@
 
 Port of galileo_sdr_sim_tpu/ops/bandlimit.py.  The 31.2 Msps CBOC
 waveform x_hi[12n + j] is twelve 2.6 Msps pointwise streams x_j at
-sub-sample offsets t_j = j / (12 fs): each phase is one call of the
-factorized kernel (emit="int16") on a phase-shifted epoch batch.  The
+sub-sample offsets t_j = j / (12 fs).  A block's twelve phase-shifted
+copies go on one epoch axis (`phase_stack`), so the twelve streams are
+one host prep and one call of the factorized kernel (emit="int16") of
+12 x B epochs: an epoch's output depends on its own operands and the
+shared code table alone, so the call writes the bytes of twelve calls of
+B epochs, already in the (12, B, 2N) layout the filter reads.  The
 decimate-by-12 of conv(x_hi, h) is, in polyphase form, one
 12-input-channel convolution over the stacked phase streams; an overlap
 state of the trailing 2*V0 = 32 low-rate samples per phase carries
@@ -19,11 +23,12 @@ otherwise run float32 convolutions in TF32 (a 10-bit mantissa), which
 moves outputs by several LSB.
 
 Spans (profiling.span; nothing without an installed Timer): `launch`
-around each phase's kernel call (12 a block) and `filter` around the
-whole filter (1 a block).  Called from the stream they are the sections
-`host_prep+dispatch/launch` and `host_prep+dispatch/filter`.  On a GPU
-`filter` is not dispatch alone: the weights' pageable host-to-device copy
-inside it waits for the block's 12 kernel pairs on the stream.
+around the block's one kernel call and `filter` around the whole filter
+(1 a block each); the host prep opens its own `seed` and `h2d` (1 a
+block).  Called from the stream they are the sections
+`host_prep+dispatch/launch` and so on.  On a GPU `filter` is not
+dispatch alone: the weights' pageable host-to-device copy inside it
+waits for the block's kernel pair on the stream.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 from ..constants import NUM_IQ_SAMPLES, SAMP_RATE
 from ..profiling import span
 from ..scenario import EpochBatch
+from .synth import _pad_batch
 from .synth_kp import CBOC_WIDTH, P_GRID, prepare_kp_inputs
 from .synth_kp_cuda import synth_kp_int16
 
@@ -82,6 +88,29 @@ def phase_shift_batch(batch: EpochBatch, j: int) -> EpochBatch:
         batch,
         code_phase0=batch.code_phase0 + batch.f_code * tj,
         carr_phase0=np.mod(batch.carr_phase0 + batch.f_carr * tj, 1.0),
+    )
+
+
+def phase_stack(batch: EpochBatch) -> EpochBatch:
+    """The OS phase-shifted copies of a B-epoch batch on one epoch axis:
+    epoch j*B + b is epoch b of `phase_shift_batch(batch, j)`, bit for
+    bit.  The code rows and the PRN map are the batch's own, so the code
+    cache's key is too."""
+    shifts = [phase_shift_batch(batch, j) for j in range(OS)]
+
+    def tiled(x: np.ndarray) -> np.ndarray:
+        return np.concatenate([x] * OS)
+
+    return dataclasses.replace(
+        batch,
+        grx_sec=tiled(batch.grx_sec),
+        f_carr=tiled(batch.f_carr),
+        f_code=tiled(batch.f_code),
+        code_phase0=np.concatenate([s.code_phase0 for s in shifts]),
+        carr_phase0=np.concatenate([s.carr_phase0 for s in shifts]),
+        sym_win=tiled(batch.sym_win),
+        pilot_win=tiled(batch.pilot_win),
+        gain=tiled(batch.gain),
     )
 
 
@@ -132,23 +161,25 @@ def synth_phases(
     device: torch.device,
 ) -> torch.Tensor:
     """The 12 phase streams of a 12-subdiv CBOC batch -> (OS, B, 2N)
-    int16 on `device`: one host prep and one kernel call (emit="int16")
-    per phase, all sharing one code table."""
+    int16 on `device`, B the padded epochs: the batch padded, its phase
+    stack (`phase_stack`, compacted and seeded by one `prepare_kp_inputs`)
+    and one kernel call (emit="int16") of OS x B epochs, whose output
+    this is a view of.  The gain weights of the stack equal the batch's:
+    its peak is the batch's peak."""
     if batch.codes_b.shape[1] != CBOC_WIDTH:
         raise ValueError("--bandlimit needs the CBOC 12-grid signal model")
-    phases = []
-    for j in range(OS):
-        inputs = prepare_kp_inputs(
-            phase_shift_batch(batch, j),
-            nsamples,
-            pad_epochs=pad_epochs,
-            code_cache=code_cache,
-            apply_gain=apply_gain,
-            device=device,
-        )
-        with span("launch"):
-            phases.append(synth_kp_int16(inputs, n_k=nsamples // P_GRID))
-    return torch.stack(phases)
+    if pad_epochs is not None and batch.f_code.shape[0] != pad_epochs:
+        batch = _pad_batch(batch, pad_epochs)
+    inputs = prepare_kp_inputs(
+        phase_stack(batch),
+        nsamples,
+        code_cache=code_cache,
+        apply_gain=apply_gain,
+        device=device,
+    )
+    with span("launch"):
+        out = synth_kp_int16(inputs, n_k=nsamples // P_GRID)
+    return out.view(OS, batch.f_code.shape[0], -1)
 
 
 def synth_block_cboc_bandlimited(

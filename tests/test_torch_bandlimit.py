@@ -7,6 +7,9 @@
   difference within 2 (float32 sums straddling an integer truncate
   differently: the class of tests/test_bandlimit.py:91-94); the new
   overlap state is a copy and equal exactly.
+* The phase stack (one host prep and one kernel call of 12 x B epochs)
+  equals the 12 calls of B epochs it replaced, bit for bit, and is a
+  view of the one call's output.
 * Whole blocks: the phase stacks meet `cboc_bar`, and each output
   sample obeys |y_port - y_jax| <= (|K| * |x_port - x_jax|) + 2 with K
   the polyphase kernel (`bandlimit_bar`): one chip-edge flip of 1000 in
@@ -26,6 +29,7 @@ from galileo_sdr_sim_tpu.ops import bandlimit as jbl
 from galileo_sdr_sim_tpu.ops import synth_kp as jkp
 from galileo_sdr_sim_tpu_torch.harness import BL_SLACK, bandlimit_bar, cboc_bar
 from galileo_sdr_sim_tpu_torch.ops import bandlimit as tbl
+from galileo_sdr_sim_tpu_torch.ops import synth_kp as tkp
 from galileo_sdr_sim_tpu_torch.ops import synth_kp_cuda
 
 from _torch_parity import CPU, fixture_engine
@@ -37,13 +41,30 @@ NS = 8 * 1300  # 10400-sample test epochs
 def blocks():
     """Three blocks of the CBOC fixture scene: 4, 4 and 2 epochs."""
     out = list(fixture_engine(1.0, model=E1_CBOC).batches(4))[:3]
-    last = out[2]
-    out[2] = dataclasses.replace(
-        last, **{f: getattr(last, f)[:2] for f in (
+    out[2] = first_epochs(out[2], 2)
+    return out
+
+
+def first_epochs(batch, n):
+    """The batch's first n epochs."""
+    return dataclasses.replace(
+        batch, **{f: getattr(batch, f)[:n] for f in (
             "grx_sec", "f_carr", "f_code", "code_phase0", "carr_phase0",
             "sym_win", "pilot_win", "gain")},
     )
-    return out
+
+
+def twelve_calls(batch, pad, cache, apply_gain):
+    """The 12 phase streams as one host prep and one int16 call per
+    phase, (12, pad, 2N) int16: the loop the phase stack replaced."""
+    return torch.stack([
+        synth_kp_cuda.synth_kp_int16(
+            tkp.prepare_kp_inputs(tbl.phase_shift_batch(batch, j), NS, pad_epochs=pad,
+                                  code_cache=cache, apply_gain=apply_gain, device=CPU),
+            NS // 1300,
+        )
+        for j in range(tbl.OS)
+    ])
 
 
 def jax_phases(batch, apply_gain=False, pad=4):
@@ -149,8 +170,10 @@ def test_blocks_match_jax(blocks, apply_gain):
 
 
 def test_block_is_twelve_int16_calls(blocks, monkeypatch):
-    """Each block is 12 calls of the kernel's int16 wrapper on
-    phase-shifted epochs, sharing one code table."""
+    """Each block is one call of the kernel's int16 wrapper on its 12
+    phase-shifted copies stacked on the epoch axis (12 x 4 epochs, n_k
+    unchanged): 12 distinct phase rows of cp0, phase j's epochs at rows
+    4j..4j+3, and one code table."""
     calls = []
 
     def spy(inputs, n_k):
@@ -160,10 +183,41 @@ def test_block_is_twelve_int16_calls(blocks, monkeypatch):
     monkeypatch.setattr(tbl, "synth_kp_int16", spy)
     cache = {}
     out, state = tbl.synth_block_cboc_bandlimited(blocks[0], NS, pad_epochs=4, code_cache=cache, device=CPU)
-    assert len(calls) == 12 and {n_k for _, n_k in calls} == {8}
-    assert len({c.numpy().tobytes() for c, _ in calls}) == 12  # 12 distinct phases
+    assert len(calls) == 1 and calls[0][1] == 8
+    cp0 = calls[0][0].numpy()
+    assert cp0.shape == (12 * 4, 8)
+    assert len({row.tobytes() for row in cp0.reshape(12, -1)}) == 12  # 12 distinct phases
+    for j in (0, 5, 11):
+        leg = tkp.compact_channels(tbl.phase_shift_batch(blocks[0], j))
+        np.testing.assert_array_equal(cp0[4 * j:4 * j + 4], leg.code_phase0.astype(np.float32))
     assert tuple(out.shape) == (4, 2 * NS) and tuple(state.shape) == (2, 12, 32)
     assert set(cache) == {"key", "vpack_rs"}
+
+
+@pytest.mark.parametrize("apply_gain", [False, True], ids=["no_gain", "gain"])
+@pytest.mark.parametrize("block, n_real", [(1, 1), (4, 4), (4, 2)],
+                         ids=["b1", "b4_full", "b4_partial"])
+def test_phase_stack_equals_twelve_calls(blocks, block, n_real, apply_gain, monkeypatch):
+    """`synth_phases` (one prep and one call of 12 x block epochs) equals
+    the 12 calls of `block` epochs bit for bit, on full and partial
+    blocks, and its (12, block, 2N) result is a view of the one call's
+    output."""
+    batch = first_epochs(blocks[1], n_real)
+    outs = []
+
+    def spy(inputs, n_k):
+        outs.append(synth_kp_cuda.synth_kp_int16(inputs, n_k))
+        return outs[-1]
+
+    monkeypatch.setattr(tbl, "synth_kp_int16", spy)
+    got = tbl.synth_phases(batch, NS, pad_epochs=block, code_cache={}, apply_gain=apply_gain,
+                           device=CPU)
+    assert len(outs) == 1 and tuple(outs[0].shape) == (12 * block, 2 * NS)
+    assert tuple(got.shape) == (12, block, 2 * NS) and got.dtype == torch.int16
+    assert got.data_ptr() == outs[0].data_ptr()
+    assert got._base is not None and got._base is outs[0]._base  # a view, no copy
+    ref = twelve_calls(batch, block, {}, apply_gain)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
 
 
 def test_sine_boc_batch_is_refused():

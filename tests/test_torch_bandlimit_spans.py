@@ -1,7 +1,8 @@
 """The band-limited path's spans (profiling.span) on the CPU: in the stream
-each of the 12 phases' kernel calls is a `host_prep+dispatch/launch`
-entry and the polyphase filter one `host_prep+dispatch/filter` entry a
-block; the pointwise models keep one kernel call and no filter; in every
+the 12 phases' one host prep and one kernel call are one
+`host_prep+dispatch/seed`, `/h2d` and `/launch` entry a block, as the
+pointwise models' are, and the polyphase filter one
+`host_prep+dispatch/filter` entry a block (none pointwise); in every
 model the code table reads are one `scenario/pack/codes` entry a block.  With no
 Timer installed the spans do nothing: the `--bandlimit` command line's
 file, made under the stream's Timer, is the same byte for byte as the
@@ -14,7 +15,7 @@ from galileo_sdr_sim_tpu_torch import cli, profiling, scenario
 from galileo_sdr_sim_tpu_torch.io.stream import StreamingSynthesizer
 from galileo_sdr_sim_tpu_torch.models.cboc import E1_CBOC
 from galileo_sdr_sim_tpu_torch.models.e1 import E1_OS
-from galileo_sdr_sim_tpu_torch.ops.bandlimit import OS, synth_block_cboc_bandlimited
+from galileo_sdr_sim_tpu_torch.ops.bandlimit import synth_block_cboc_bandlimited
 from galileo_sdr_sim_tpu_torch.rinex import read_rinex_v3
 
 from _torch_parity import CPU, LLH, NAV, START
@@ -41,11 +42,10 @@ def test_span_entries_a_block(model, bandlimit):
                                  block_epochs=BLOCK, nsamples=10400, bandlimit=bandlimit)
     timer = synth.run().timer
     counts, sections = timer.counts, timer.sections
-    calls = OS if bandlimit else 1  # kp calls a block
     assert counts["scenario/pack"] == counts["scenario/pack/codes"] \
         == counts["host_prep+dispatch"] == BLOCKS
     assert counts["host_prep+dispatch/launch"] == counts["host_prep+dispatch/seed"] \
-        == calls * BLOCKS
+        == counts["host_prep+dispatch/h2d"] == BLOCKS  # one prep and kp call a block
     assert counts.get("host_prep+dispatch/filter", 0) == (BLOCKS if bandlimit else 0)
     assert sections["scenario/pack/codes"] <= sections["scenario/pack"]
     prep = sections["host_prep+dispatch"]

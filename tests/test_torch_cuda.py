@@ -12,12 +12,13 @@ difference within 4 * LUT_AMPLITUDE = 1000), its CBOC instantiations to
 equal its CPU run exactly under lut512.  The band-limit filter on the
 card is held to its CPU run (>= 99.9% identical, every difference
 within 1), and the band-limited stream to its CPU run by the per-sample
-bound of `bandlimit_bar`.  The f32 emit is held to its plain version by
-the same bars on its truncated values, and its truncation must equal the
-packed store bit for bit (every op before the store is shared).  Without
-a GPU every test skips: a CUDA kernel has no CPU mode.  The gather
-kernel must equal `torch.take_along_dim`, and its plain version where an
-index lies outside the table.  Every kp instantiation must reproduce the
+bound of `bandlimit_bar`; its phase stack (one kp call of 12 x B epochs)
+must equal the 12 calls of B epochs byte for byte.  The f32 emit is held
+to its plain version by the same bars on its truncated values, and its
+truncation must equal the packed store bit for bit (every op before the
+store is shared).  Without a GPU every test skips: a CUDA kernel has
+no CPU mode.  The gather kernel must equal `torch.take_along_dim`, and
+its plain version where an index lies outside the table.  Every kp instantiation must reproduce the
 recorded digests of its output (tests/data/torch_kp_digests.json): the
 same bits as the kernel they were recorded from.  The pair of launches
 of a call (the main kernel a programmatic dependent of the prologue)
@@ -244,7 +245,7 @@ def test_bandlimit_stream_on_the_card(gpu):
     before = synth_kp_cuda.launch_counts["synth_kp_v5_cboc_gain"]
     sink = _Collect()
     stats = StreamingSynthesizer(fixture_engine(NAV, 0.8, E1_CBOC), sink, device=gpu, **kw).run()
-    assert synth_kp_cuda.launch_counts["synth_kp_v5_cboc_gain"] - before == 2 * 12
+    assert synth_kp_cuda.launch_counts["synth_kp_v5_cboc_gain"] - before == 2  # one a block
     assert stats.epochs == 7
     cpu_sink = _Collect()
     StreamingSynthesizer(fixture_engine(NAV, 0.8, E1_CBOC), cpu_sink, device=CPU, **kw).run()
@@ -261,6 +262,31 @@ def test_bandlimit_stream_on_the_card(gpu):
     assert bar["ok"], bar
     bar = bandlimit_bar(got, ref, x_g, x_c)
     assert bar["ok"], bar
+
+
+@pytest.mark.parametrize("apply_gain", [False, True], ids=["no_gain", "gain"])
+@pytest.mark.parametrize("block", [1, 4, 8])
+def test_phase_stack_on_the_card(gpu, block, apply_gain):
+    """The band-limited phase stack of a block of full-length epochs, one
+    kp call of 12 x block epochs, equals the 12 calls of `block` epochs
+    it replaced (a prep and a call per phase) byte for byte."""
+    batch = next(fixture_engine(NAV, 1.0, E1_CBOC).batches(block))
+    assert batch.f_code.shape[0] == block
+    name = "synth_kp_v5_cboc_gain" if apply_gain else "synth_kp_v5_cboc"
+    before = synth_kp_cuda.launch_counts[name]
+    got = tbl.synth_phases(batch, 260000, block, {}, apply_gain, device=gpu)
+    assert synth_kp_cuda.launch_counts[name] - before == 1
+    cache = {}
+    ref = torch.stack([
+        synth_kp_cuda.synth_kp_int16(
+            tkp.prepare_kp_inputs(tbl.phase_shift_batch(batch, j), 260000, pad_epochs=block,
+                                  code_cache=cache, apply_gain=apply_gain, device=gpu),
+            N_K,
+        )
+        for j in range(tbl.OS)
+    ])
+    assert tuple(got.shape) == tuple(ref.shape) == (12, block, 2 * 260000)
+    assert torch.equal(got, ref)
 
 
 # --- the f32 emit (kernel 2) and the shared-GPU refusal ----------------------
