@@ -6,7 +6,15 @@ allowed as well), read against the float64 reference on the same epochs
 a run checks, for each seed.  It must come out as not correct.  The
 benchmark's runs do not run it.
 
+`--fault history_reset` (band-limited cells) reads a fault instead: the
+reference at full precision with the filter's history zero at every
+block's edge (every epoch e % block_epochs == 0), as a stream that drops
+its filter state between blocks would give; each job checks one such
+epoch, and `max_abs` has to fail it.
+
     python3 portbench/control.py --workload e1_os.file_b8 --seeds 11,12,13
+    python3 portbench/control.py --workload e1_cboc_bl.file_b8 --seeds 11,12,13 \
+        --fault history_reset
 """
 
 import argparse
@@ -26,6 +34,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True, help="comma-separated")
+    p.add_argument("--fault", choices=("history_reset",), default=None,
+                   help="read this fault instead of the precision control")
     args = p.parse_args()
     cell = load_cell(args.workload)
     cfg, traffic = cell.config, cell.traffic
@@ -33,22 +43,30 @@ def main() -> int:
     nav = str(ROOT / cfg["nav_file"])
     bl = cfg["bandlimit"]
     limits = cfg["checks"]
+    if args.fault and not bl:
+        raise SystemExit(f"--fault {args.fault} needs a band-limited cell")
+    what = args.fault or "control"
     for seed in (int(s) for s in args.seeds.split(",")):
-        worst = {"off1_pct": 0.0, "dense_pct": 0.0}
+        worst = {"off1_pct": 0.0, "dense_pct": 0.0, "max_abs": 0}
         for j in range(traffic["check_jobs"]):
             job = draw_job(traffic, seed, j)
             epochs = sorted(job.check)
             ref = reference_epochs(job, epochs, cfg, nav, device)
-            ctl = reference_epochs(job, epochs, cfg, nav, device, torch.bfloat16, bl)
+            if args.fault:
+                ctl = reference_epochs(job, epochs, cfg, nav, device,
+                                       reset_every=traffic["block_epochs"])
+            else:
+                ctl = reference_epochs(job, epochs, cfg, nav, device, torch.bfloat16, bl)
             for e in epochs:
-                off1, dense = epoch_numbers(ctl[e], ref[e])
-                worst["off1_pct"] = max(worst["off1_pct"], off1)
-                worst["dense_pct"] = max(worst["dense_pct"], dense)
-                print(f"seed {seed} job {j} epoch {e}: control off1 {off1:.6f}% dense {dense:.6f}%")
+                numbers = epoch_numbers(ctl[e], ref[e])
+                for k, v in zip(worst, numbers):
+                    worst[k] = max(worst[k], v)
+                print(f"seed {seed} job {j} epoch {e}: {what} off1 {numbers[0]:.6f}% dense "
+                      f"{numbers[1]:.6f}% max_abs {numbers[2]}")
         fails = [k for k, v in worst.items() if k in limits and v > limits[k]]
-        print(f"seed {seed}: worst control off1 {worst['off1_pct']:.6f}% dense "
-              f"{worst['dense_pct']:.6f}%; fails {fails or 'nothing'} of the limits {limits}",
-              flush=True)
+        print(f"seed {seed}: worst {what} off1 {worst['off1_pct']:.6f}% dense "
+              f"{worst['dense_pct']:.6f}% max_abs {worst['max_abs']}; fails "
+              f"{fails or 'nothing'} of the limits {limits}", flush=True)
     return 0
 
 

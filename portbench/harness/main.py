@@ -121,7 +121,9 @@ def report(cell: Cell, out: dict, trace: bool, device_info: dict) -> dict:
     """Print what ran -> the result line's dict."""
     results, check, obs = out["results"], out["check"], out["obs"]
     for r in results:
-        print(f"job {r.job.index}: site {r.job.llh[0]:.4f},{r.job.llh[1]:.4f},{r.job.llh[2]:.1f} "
+        where = "site" if r.job.trajectory is None else "moving from"
+        lat, lon, hgt = r.job.llh
+        print(f"job {r.job.index}: {where} {lat:.4f},{lon:.4f},{hgt:.1f} "
               f"start {r.job.start_arg}, {r.satellites} satellites, {r.epochs} of {r.expected} "
               f"epochs, {'to its end' if r.finished else 'cut by the window'}, fallback blocks "
               f"{r.counts.get('fallback_direct', 0)}{', FAILED' if r.error else ''}")
@@ -129,8 +131,9 @@ def report(cell: Cell, out: dict, trace: bool, device_info: dict) -> dict:
     for k, v in sorted(obs.sections.items(), key=lambda kv: -kv[1]):
         print(f"  section {k}: {v:.6f} s ({100 * v / obs.window_s:.3f}% of the window), "
               f"{out['counts'].get(k, 0)} entries")
-    for job, e, off1, dense in check.per_epoch:
-        print(f"  checked job {job} epoch {e}: off1 {off1:.6f}% dense {dense:.6f}%")
+    for job, e, off1, dense, max_abs in check.per_epoch:
+        print(f"  checked job {job} epoch {e}: off1 {off1:.6f}% dense {dense:.6f}% "
+              f"max_abs {max_abs}")
     failed = {r.job.index for r in results if r.error} | check.failed_jobs
     entries = cell.per_layer if trace else cell.end_to_end
     metrics = {}

@@ -9,8 +9,9 @@ bytes over the second, each input byte read once and each output byte
 written once.
 
 The kp pair (the prologue and the main kernel of csrc/synth_kp_v5.cu, one
-call a block or, band-limited, twelve) counts as the work of the whole
-call: the operations of its main loop, counted from the source when the
+call a block: of B epochs, or band-limited of the block's 12 phase
+streams stacked, 12 x B epochs) counts as the work of the whole call:
+the operations of its main loop, counted from the source when the
 benchmark was defined (an FMA counts 2; integer bit operations and int8 ->
 float conversions are not counted, nor the per-(c, p) prologue and the K
 factors, under 2% of the rest): per (channel, sample) 29, plus 5 under CBOC

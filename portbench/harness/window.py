@@ -2,13 +2,16 @@
 program's streaming executor, as its command line runs them with
 `-U 1 -b 1` (file sink, no bit relay), until the window closes.
 
-Each job builds the program's `ScenarioEngine` (a live position source
-that stays at the job's site, as the command line's UDP position thread
-leaves it, without the sockets) and `StreamingSynthesizer`, whose sink is
+Each job builds the program's `ScenarioEngine` and `StreamingSynthesizer`.
+A static job's position source is live and stays at the job's site, as
+the command line's UDP position thread leaves it, without the sockets; a
+moving job's is its trajectory, as `-u` gives it.  The sink is
 the program's `FileSink` on `os.devnull` behind `TeeSink`.  The tee
 passes every block on unchanged, counts the samples handed over while the
 window is open, keeps the epochs the check compares, and stops the job's
-stream at the close.  The nav file is parsed once, in set-up.
+stream at the close.  The nav file is parsed once, in set-up, with the
+ionosphere model off where the configuration says `"iono": false`, as
+`-I` turns it off.
 """
 
 from __future__ import annotations
@@ -104,15 +107,21 @@ class Runner:
         self.model = E1_CBOC if config["model"] == "cboc" or config["bandlimit"] else E1_OS
         self.config, self.traffic, self.device = config, traffic, device
         self.nav = read_rinex_v3(str(root / config["nav_file"]))
+        if not config.get("iono", True):
+            self.nav.iono.enable = False
 
     def job(self, job: Job, window: Window | None) -> JobResult:
         res = JobResult(job, epochs_of(job.seconds))
         tee = None
         try:
             with record_function("portbench.job_setup"):
-                llh = np.asarray(job.llh, np.float64)
+                if job.trajectory is None:
+                    llh = np.asarray(job.llh, np.float64)
+                    position = PositionProvider(live=lambda: llh)
+                else:
+                    position = PositionProvider(trajectory=job.trajectory)
                 engine = ScenarioEngine(
-                    self.nav, PositionProvider(live=lambda: llh),
+                    self.nav, position,
                     scenario_start_time(self.nav, _parse_time(job.start_arg)), job.seconds,
                     model=self.model,
                 )

@@ -1,9 +1,9 @@
 """scenario_geometry_share_pct: the stream's Timer section
-`scenario/geometry`, receiver geometry in `ScenarioEngine._step` /
-`_step_block` (the receiver position to ECEF, the stacked ephemerides,
-`compute_range`, `code_phase_state`, the vectorized gains), summed over
-the window's jobs up to the close, as a share of the window. Its parent
-section includes it."""
+`scenario/geometry`, receiver geometry in `ScenarioEngine._step_block`,
+the scenario's one stepping path (the receiver position to ECEF, the
+stacked ephemerides, `compute_range`, `code_phase_state`, the vectorized
+gains), summed over the window's jobs up to the close, as a share of the
+window. Its parent section includes it."""
 
 SECTION = "scenario/geometry"
 

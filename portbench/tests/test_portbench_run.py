@@ -49,8 +49,11 @@ def test_traced_line_has_the_per_layer_metrics():
     assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "breakdown",
                           "checks"]
     # no device on the CPU: the trace's readers find nothing to read
-    assert set(line["metrics"]) == {"scenario_share_pct", "host_prep_share_pct",
-                                    "drain_share_pct", "sink_share_pct", "device_idle_pct"}
+    assert set(line["metrics"]) == {
+        "scenario_share_pct", "host_prep_share_pct", "drain_share_pct", "sink_share_pct",
+        "device_idle_pct", "scenario_geometry_share_pct", "scenario_nav_share_pct",
+        "scenario_pack_share_pct", "scenario_pack_codes_share_pct", "host_prep_seed_share_pct",
+        "host_prep_launch_share_pct", "host_prep_fetch_share_pct", "sink_file_share_pct"}
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
 

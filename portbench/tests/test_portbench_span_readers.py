@@ -70,11 +70,11 @@ def test_span_shares_sum_within_their_stage():
 
 def test_span_entries_in_the_manifest():
     """Seven per-layer entries: program spans that move samples_per_s in
-    the cell that reports them, each under its stage's layer."""
+    the cells that report them, each under its stage's layer."""
     layers = {m["name"]: m["layer"] for m in load_cell("e1_os.file_b8").per_layer}
     for name, (_, stage) in SPANS.items():
         m = _entry(name)
         assert (m["source"], m["unit"], m["better"], m["moves"]) == (
             "program_span", "%", "lower", "samples_per_s")
-        assert m["workloads"] == ["e1_os.file_b8"]
+        assert m["workloads"] == ["e1_os.file_b8", "e1_cboc_bl.file_b8"]
         assert m["layer"] == layers[stage]
